@@ -8,21 +8,36 @@ Phases, in order, each printed with its seconds:
    matmul and cuDNN;
 2. build: every CUDA kernel of the port, one nvcc per source, started
    together;
-3. parity: each kernel against its plain PyTorch version on the card,
-   bit for bit, on boards from the port's engine (random legal play stopped
+3. parity: each kernel against its plain PyTorch version on the card, bit
+   for bit.  Boards come from the port's engine (random legal play stopped
    between 0 and 250 moves, passes, finished games, a super-ko in the
-   ring), at the batch sizes the search uses;
-4. reference: a small self-play run on the card (kernel) and on the CPU
-   (plain version) with a deterministic predictor gives the same games;
-5. self-play: the main path, ``python -m dream_go_torch.cli --self-play 256
-   --continuous --num-rollout 64 --num-games 256 --max-moves 16`` through
-   the CLI's code, at the full 128 x 9 width with seeded random weights,
-   with the kernels' launch counts read just before and just after;
-6. timing: each kernel at the main path's batch beside its memory bound and
-   its plain version.
+   ring); the ladder kernel also reads the sanity-test ladder positions,
+   the 48-capture and 12-escape swarms, the 31-rung staircase and a broken
+   one, and the staircase again with its rung budget and branch stack cut
+   below what the chase needs (both must lose the capture);
+4. reference: small self-play runs on the card (kernels) and on the CPU
+   (plain versions) with a deterministic predictor give the same games:
+   planes off, planes on (fused), planes on with the feature kernel
+   (unfused);
+5. self-play, each path with the kernels' launch counts set to 0 just
+   before it and read just after, at the full 128 x 9 width with seeded
+   random weights:
+   - ``python -m dream_go_torch.cli --self-play 256 --continuous
+     --num-rollout 64 --num-games 256 --max-moves 8`` (planes off),
+   - the same with ``--max-moves 16 --ladder-features`` (the main path of
+     this slice: leaf_step and the ladder kernel),
+   - the unfused product path, ``SearchConfig(fused=False,
+     feature_kernel=True, ladder_features=True)``, 64 games x 16 rollouts
+     x 8 moves (the feature kernel and the ladder kernel);
+6. sanity net: ``tests/fixtures/sanity_net.json`` loads through the CLI's
+   code, turns planes 30/31 on from its contract, and evaluates the three
+   ladder positions on the card in bf16 within the stated tolerance of the
+   CPU's float32 eval, with equal planes;
+7. timing: each kernel at the main path's batch, as CUDA-graph replays and
+   as eager calls, beside its bound and its plain version.
 
-The second-to-last line is one JSON object with a row per kernel, the line
-before it the card's name and power limit, and the last line
+The second-to-last line is the card's name and power limit, the line
+before it one JSON object with a row per kernel, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the script
 exits non-zero without that last line, as it does where there is no CUDA
 device or no checkout of the repository around it.
@@ -41,10 +56,37 @@ import time
 import numpy as np
 import torch
 
-#: the main path's shapes
+#: the main path's shapes (planes on); the planes-off run stops earlier
 GAMES, ROLLOUTS, MAX_MOVES = 256, 64, 16
+OFF_MOVES = 8
+#: the unfused feature-kernel path, cut in depth
+UNF_GAMES, UNF_ROLLOUTS, UNF_MOVES = 64, 16, 8
 PARITY_BATCHES = (1, 7, 256, 1024)
+#: the plain ladder reader runs B=1024 in chunks of this many boards
+LADDER_CHUNK = 256
 TIMING_BATCH = 256
+#: the sanity-test ladder positions: fixture, moves replayed, colour to move
+#: (tests/test_sanity_positions.py LADDER_CASES)
+LADDER_POSITIONS = [("ladder_1", 70, 1), ("ladder_2", 18, 1),
+                    ("ladder_3", 54, 2)]
+#: the sanity net's bf16 eval against float32, each limit set between
+#: the sound readings and those of a wrong eval (planes 30/31 zeroed).
+#: Max |value|, max |policy| and the policy's KL(fp32 || bf16), sound:
+#: 1.95e-3 / 7.50e-4 / 1.10e-4 (bf16 on the CPU); wrong: 5.03e-3 /
+#: 3.31e-3 / 1.37e-3 (bf16 on the CPU).  The phase also evaluates the
+#: wrong input on the card and fails unless the limits reject it
+BF16_VALUE_ATOL = 3.5e-3
+BF16_POLICY_ATOL = 1.5e-3
+BF16_POLICY_KL = 4e-4
+#: the ladder kernel's operations bound prices what a rung needs: two
+#: stones placed, each reading and updating its four neighbours' colours
+#: and chain liberty counts (4 integer operations a neighbour), and the
+#: extension picked among four neighbours; and a board's candidate scan
+#: at 16 operations a point (four neighbours' colour and liberties)
+LADDER_OPS_PER_RUNG = 2 * 4 * 4 + 4 * 4
+LADDER_OPS_PER_POINT = 16
+#: csrc/ladder_planes.cu deals a board's chases round-robin to 8 warps
+LADDER_WARPS = 8
 #: H100 SXM HBM rate and the non-tensor-core fp32/int32 issue rate
 #: (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -153,12 +195,11 @@ def random_boards(n: int, dev, seed: int = 0):
     return states, action.to(torch.int32)
 
 
-def parity_phase(dev):
+def leaf_step_parity(dev, states, actions):
     from dream_go_torch.ops import layout
     from dream_go_torch.ops import leaf_step as L
 
     t0 = time.monotonic()
-    states, actions = random_boards(max(PARITY_BATCHES), dev, seed=1)
     packed = layout.pack_states(states)
     done = int(states.done.sum())
     moves = states.move_count.float()
@@ -195,7 +236,143 @@ def parity_phase(dev):
             check(float(got[1][:, 29].sum()) > 0, "no super-ko plane set")
     phase("parity", t0, f"leaf_step bit-exact vs plain at B="
           f"{list(PARITY_BATCHES)} (max abs err {worst})")
-    return worst, states, actions
+    return worst
+
+
+def cat_states(parts):
+    from dream_go_torch.go import engine
+
+    return engine.GoState(**{k: torch.cat([getattr(s, k) for s in parts])
+                             for k in parts[0].fields()})
+
+
+def ladder_positions(dev):
+    """The sanity-test ladder positions, replayed from their SGF files
+    with the port's reader and engine, the colour to move set."""
+    from dream_go_torch.go import engine
+    from dream_go_torch.utils import sgf
+
+    out = []
+    for name, limit, color in LADDER_POSITIONS:
+        with open(f"tests/fixtures/sanity/{name}.sgf") as fh:
+            game = sgf.parse_line(fh.read().replace("\n", ""))
+        s = engine.new_states(1, komi=game.komi, device=dev)
+        for mv in game.moves[:limit]:
+            s = engine.step(s.replace(to_move=torch.tensor(
+                [mv.color], dtype=torch.int8, device=dev)),
+                torch.tensor([mv.point], dtype=torch.int32, device=dev))
+        out.append(s.replace(to_move=torch.tensor([color], dtype=torch.int8,
+                                                  device=dev)))
+    return cat_states(out)
+
+
+def curated_boards(dev):
+    """Seven boards: the ladder stress boards (the 31-rung staircase, the
+    same broken by a white stone at (17,17), the 48-capture and the
+    12-escape swarms) and the three sanity-test ladder positions."""
+    from dream_go_torch.go import boards
+
+    return cat_states([boards.from_stones(boards.ladder_stress(), dev),
+                       ladder_positions(dev)])
+
+
+def ladder_args(states):
+    from dream_go_torch.ops import layout
+
+    rows = layout.pack_states(states)
+    return rows[0], rows[1], states.to_move.to(torch.int32).contiguous()
+
+
+def ladder_parity(dev, states):
+    """K2 against its plain version: the curated boards first, then the
+    random ones, at B = 1, 7, 256 and 1024 (the plain reader in chunks of
+    LADDER_CHUNK boards), then the staircase with cut bounds."""
+    from dream_go_torch.go.boards import STAIRCASE_START as STAIR
+    from dream_go_torch.ops import ladder_kernel as LK
+
+    t0 = time.monotonic()
+    cur = curated_boards(dev)
+    boards = cat_states([cur, states.index(
+        torch.arange(max(PARITY_BATCHES) - cur.batch, device=dev))])
+    st, cid, tm = ladder_args(boards)
+    worst = 0
+    for b in PARITY_BATCHES:
+        got = LK.ladder_planes_kernel(st[:b].contiguous(),
+                                      cid[:b].contiguous(), tm[:b].contiguous())
+        torch.cuda.synchronize()
+        want = [torch.cat(x) for x in zip(*[
+            LK.ladder_planes_plain(st[i:min(i + LADDER_CHUNK, b)],
+                                   cid[i:min(i + LADDER_CHUNK, b)],
+                                   tm[i:min(i + LADDER_CHUNK, b)])
+            for i in range(0, b, LADDER_CHUNK)])]
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:10].tolist()
+                raise RuntimeError(f"ladder_planes differs at B={b}: {bad}")
+            worst = max(worst, int((g.int() - w.int()).abs().max()))
+        if b == 7:
+            cap, esc = got
+            check(bool(cap[0, STAIR]) and not bool(cap[1, STAIR]),
+                  "the staircase capture is not read")
+            check(int(cap[2].sum()) > 0 and int(esc[3].sum()) == 12,
+                  "the swarms read wrong")
+            check(int(cap[4:].sum()) > 0, "no ladder in the sanity positions")
+    planes = [int(x.sum()) for x in got]
+    # the staircase with its bounds cut: 24 or 61 rungs, or no stack, lose
+    # the capture (fail-safe); 62 rungs or one stack slot keep it
+    sub = [t[:7].contiguous() for t in (st, cid, tm)]
+    for budget, stack_cap, hit in ((24, 8, False), (61, 8, False),
+                                   (62, 8, True), (320, 0, False),
+                                   (320, 1, True)):
+        got = LK.ladder_planes_kernel(*sub, budget, stack_cap)
+        want = LK.ladder_planes_plain(*sub, budget, stack_cap)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"ladder_planes differs at budget {budget}, stack {stack_cap}")
+        check(bool(got[0][0, STAIR]) == hit,
+              f"staircase at budget {budget}, stack {stack_cap}")
+    torch.cuda.synchronize()
+    phase("parity", t0, f"ladder_planes bit-exact vs plain at B="
+          f"{list(PARITY_BATCHES)} (B=1024 plain in chunks of "
+          f"{LADDER_CHUNK}), capture/escape points at B={b}: {planes}; "
+          "cut budget and stack fail safe (max abs err "
+          f"{worst})")
+    return float(worst)
+
+
+def libs_after_parity(dev, states):
+    from dream_go_torch.ops import layout
+    from dream_go_torch.ops import libs_after as LA
+
+    t0 = time.monotonic()
+    rows = layout.pack_states(states)
+    worst = 0
+    for b in PARITY_BATCHES:
+        st, cid = rows[0][:b].contiguous(), rows[1][:b].contiguous()
+        got = LA.features_raw(st, cid)
+        torch.cuda.synchronize()
+        want = LA.features_raw_plain(st, cid)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:10].tolist()
+            raise RuntimeError(f"libs_after differs at B={b}: {bad}")
+        worst = max(worst, int((got - want).abs().max()))
+    sub = states.index(torch.arange(7, device=dev))
+    raw = LA.board_features_raw(sub)
+    la = LA.liberties_after_both(sub)
+    check(torch.equal(la[0], raw["libs_if_black"])
+          and torch.equal(la[1], raw["libs_if_white"]),
+          "liberties_after_both disagrees with board_features_raw")
+    phase("parity", t0, f"board_features_raw (all five rows) and "
+          f"liberties_after_both bit-exact vs plain at B="
+          f"{list(PARITY_BATCHES)} (max abs err {worst})")
+    return float(worst)
+
+
+def parity_phase(dev):
+    states, actions = random_boards(max(PARITY_BATCHES), dev, seed=1)
+    errs = {"leaf_step": leaf_step_parity(dev, states, actions),
+            "ladder_planes": ladder_parity(dev, states),
+            "board_features_raw": libs_after_parity(dev, states)}
+    return errs, states, actions
 
 
 # ---------------------------------------------------------------------------
@@ -222,23 +399,42 @@ def det_predictor():
 
 
 def reference_phase(dev):
+    """Card and CPU self-play, deterministic predictor, three search
+    configurations.  With planes on, the card reads ladders with the
+    kernel (every candidate) and the CPU with the bounded exact reader (24
+    capture and 8 escape starts a board); from empty boards no position of
+    these 12-move games comes near those bounds, so the two agree, and the
+    bound tests (tests/test_torch_ladder.py) hold the difference."""
     from dream_go_torch.config import SearchConfig, SelfPlayConfig
+    from dream_go_torch.ops import ladder_kernel as LK
+    from dream_go_torch.ops import libs_after as LA
     from dream_go_torch.selfplay.search_play import \
         search_self_play_continuous
 
     t0 = time.monotonic()
-    cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=12,
-                         temperature_moves=0)
-    scfg = SearchConfig(num_rollout=16, dirichlet_noise=0.0, fused=True,
-                        adaptive=True)
-    runs = [search_self_play_continuous(det_predictor(), cfg, scfg, seed=0,
-                                        batch=4, device=d)
-            for d in (dev, "cpu")]
-    strip = [[re.sub(r"DT\[[^\]]*\]", "", g) for g in r] for r in runs]
-    check(len(strip[0]) == 4 and strip[0] == strip[1],
-          "self-play on the card differs from the CPU reference")
-    phase("reference", t0, "4 games x 16 rollouts: card (kernel) == cpu "
-          "(plain), move for move")
+    variants = [
+        ("planes off, fused", dict(fused=True), None),
+        ("planes on, fused", dict(fused=True, ladder_features=True,
+                                  ladders_exact=True), LK),
+        ("planes on, unfused, feature kernel",
+         dict(fused=False, feature_kernel=True, ladder_features=True,
+              ladders_exact=True), LA)]
+    for name, kw, kernel in variants:
+        cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=12,
+                             temperature_moves=0)
+        scfg = SearchConfig(num_rollout=16, dirichlet_noise=0.0,
+                            adaptive=True, **kw)
+        before = kernel.launches if kernel else 0
+        runs = [search_self_play_continuous(det_predictor(), cfg, scfg,
+                                            seed=0, batch=4, device=d)
+                for d in (dev, "cpu")]
+        strip = [[re.sub(r"DT\[[^\]]*\]", "", g) for g in r] for r in runs]
+        check(len(strip[0]) == 4 and strip[0] == strip[1],
+              f"self-play on the card differs from the CPU ({name})")
+        check(kernel is None or kernel.launches > before,
+              f"the card run did not launch its kernel ({name})")
+    phase("reference", t0, "4 games x 16 rollouts, card (kernels) == cpu "
+          "(plain), move for move: " + "; ".join(v[0] for v in variants))
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +449,7 @@ MOVE_RE = re.compile(r";([BW])\[([a-s]{2})?\]TV\[(\d+)\]P\[([^\]]+)\]"
                      r"V\[(-?\d\.\d{4})\]")
 
 
-def check_sgf(line: str) -> int:
+def check_sgf(line: str, rollouts: int = ROLLOUTS) -> int:
     """Raise unless ``line`` is a well-formed self-play record; returns its
     number of moves."""
     m = SGF_RE.match(line)
@@ -261,7 +457,7 @@ def check_sgf(line: str) -> int:
     moves = MOVE_RE.findall(m.group(1))
     for i, (color, _, tv, blob, value) in enumerate(moves):
         policy = np.frombuffer(base64.b85decode(blob), np.float16)
-        check(color == "BW"[i % 2] and 1 < int(tv) <= ROLLOUTS
+        check(color == "BW"[i % 2] and 1 < int(tv) <= rollouts
               and policy.shape == (362,) and np.isfinite(policy).all()
               and abs(float(policy.astype(np.float32).sum()) - 1.0) < 0.02
               and -1.0 <= float(value) <= 1.0,
@@ -269,40 +465,161 @@ def check_sgf(line: str) -> int:
     return len(moves)
 
 
-def selfplay_phase():
-    from dream_go_torch import cli
-    from dream_go_torch.ops import leaf_step as L
+def kernel_modules():
+    from dream_go_torch.ops import ladder_kernel, leaf_step, libs_after
 
-    args = cli.build_parser().parse_args([
-        "--self-play", str(GAMES), "--continuous", "--num-rollout",
-        str(ROLLOUTS), "--num-games", str(GAMES), "--max-moves",
-        str(MAX_MOVES), "--seed", "0"])
-    check((args.num_channels, args.num_blocks) == (128, 9),
-          "the main path runs at 128 x 9")
+    return {"leaf_step": leaf_step, "ladder_planes": ladder_kernel,
+            "board_features_raw": libs_after}
+
+
+def drive(name, run, games, rollouts, expect):
+    """Run one self-play path with every launch count set to 0 just
+    before and read just after; ``expect`` names the kernels the path
+    must launch."""
+    mods = kernel_modules()
     stats = {}
     torch.cuda.synchronize()
-    L.launches = 0
+    for m in mods.values():
+        m.launches = 0
     t0 = time.monotonic()
-    games = cli.self_play(args, stats=stats)
+    lines = run(stats)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {"leaf_step": L.launches}
-    check(len(games) == GAMES, f"{len(games)} games instead of {GAMES}")
-    moves = sum(check_sgf(g) for g in games)
+    launches = {k: m.launches for k, m in mods.items()}
+    check(len(lines) == games, f"{name}: {len(lines)} games, not {games}")
+    moves = sum(check_sgf(g, rollouts) for g in lines)
     events = stats["move_events"]
     sims = sum(e[2] for e in events)
-    check(launches["leaf_step"] > 0, "the main path never launched leaf_step")
-    phase("selfplay", t0,
-          f"128x9 net, {GAMES} games, {len(events)} batch moves, "
-          f"{moves} game moves, leaf_step launches {launches['leaf_step']} "
-          f"({launches['leaf_step'] / len(events):.1f} per batch move); "
-          f"games/s {GAMES / wall:.3f} moves/s {moves / wall:.1f} "
+    for k in expect:
+        check(launches[k] > 0, f"{name}: the path never launched {k}")
+    phase(name, t0,
+          f"128x9 net, {games} games x {rollouts} rollouts, {len(events)} "
+          f"batch moves, {moves} game moves, launches {launches}; games/s "
+          f"{games / wall:.3f} moves/s {moves / wall:.1f} "
           f"sims/s {sims / wall:.1f}")
-    return launches
+    return launches, len(events)
+
+
+def selfplay_phase(dev):
+    from dream_go_torch import cli
+    from dream_go_torch.config import SearchConfig, SelfPlayConfig
+    from dream_go_torch.selfplay.search_play import \
+        search_self_play_continuous
+
+    def cli_args(moves, *extra):
+        args = cli.build_parser().parse_args([
+            "--self-play", str(GAMES), "--continuous", "--num-rollout",
+            str(ROLLOUTS), "--num-games", str(GAMES), "--max-moves",
+            str(moves), "--seed", "0", *extra])
+        check((args.num_channels, args.num_blocks) == (128, 9),
+              "the main path runs at 128 x 9")
+        return args
+
+    off = cli_args(OFF_MOVES)
+    launches_off, _ = drive(
+        "selfplay (planes off)", lambda st: cli.self_play(off, stats=st),
+        GAMES, ROLLOUTS, ["leaf_step"])
+    check(launches_off["ladder_planes"] == 0, "planes off read ladders")
+
+    on = cli_args(MAX_MOVES, "--ladder-features")
+    launches_on, moves = drive(
+        "selfplay A (planes on)", lambda st: cli.self_play(on, stats=st),
+        GAMES, ROLLOUTS, ["leaf_step", "ladder_planes"])
+    # one ladder launch per lockstep simulation (= leaf_step launch) and
+    # one per root evaluation (= batch move)
+    check(launches_on["ladder_planes"] >= launches_on["leaf_step"] + moves,
+          "selfplay A: fewer ladder launches than simulations + root evals")
+
+    unf = cli_args(UNF_MOVES, "--ladder-features", "--no-fused")
+    predictor = cli.load_predictor(unf, dev)
+    scfg = SearchConfig(num_rollout=UNF_ROLLOUTS, fused=False,
+                        feature_kernel=True,
+                        ladder_features=True).resolve_auto(dev)
+    cfg = SelfPlayConfig(num_games=UNF_GAMES, num_rollout=UNF_ROLLOUTS,
+                         max_moves=UNF_MOVES)
+    launches_unf, _ = drive(
+        "selfplay B (unfused, feature kernel)",
+        lambda st: search_self_play_continuous(
+            predictor, cfg, scfg, seed=0, batch=UNF_GAMES, stats=st,
+            device=dev),
+        UNF_GAMES, UNF_ROLLOUTS, ["board_features_raw", "ladder_planes"])
+    check(launches_unf["leaf_step"] == 0, "the unfused path ran leaf_step")
+    return {"leaf_step": launches_on["leaf_step"],
+            "ladder_planes": launches_on["ladder_planes"],
+            "board_features_raw": launches_unf["board_features_raw"]}
 
 
 # ---------------------------------------------------------------------------
-# 6. timing
+# 6. the sanity net
+
+
+def bf16_gaps(v, p, v32, p32):
+    """Max |value| and |policy| differences and KL(fp32 || bf16) of the
+    policy, the card's outputs against the CPU's float32."""
+    v, p = v.float().cpu(), p.float().cpu()
+    kl = (p32 * (p32.log() - p.clamp(min=1e-30).log())).sum(-1)
+    return (float((v - v32).abs().max()), float((p - p32).abs().max()),
+            float(kl.max()))
+
+
+def sanity_phase(dev):
+    """The committed 64 x 6 net whose contract includes planes 30/31,
+    through the CLI's loader: root evals of the ladder positions, bf16 on
+    the card against float32 on the CPU.  The same eval with planes 30/31
+    zeroed must fail the limits, so that they can tell a wrong input."""
+    from dream_go_torch import cli
+    from dream_go_torch.go import features
+
+    t0 = time.monotonic()
+    argv = ["--self-play", "1", "--continuous", "--num-rollout", "2",
+            "--weights", "tests/fixtures/sanity_net.json"]
+    args = cli.build_parser().parse_args(argv)
+    check(args.ladder_features is None, "--ladder-features preset")
+    card = cli.load_predictor(args, dev)
+    check(args.ladder_features is True,
+          "the sanity net's contract did not turn planes 30/31 on")
+    cpu_args = cli.build_parser().parse_args(argv)
+    host = cli.load_predictor(cpu_args, torch.device("cpu"))
+    check(next(card.model.parameters()).dtype == torch.bfloat16,
+          "the card's tower is not bf16")
+    x = features.extract_batch(ladder_positions(dev), True, False, True)
+    x_cpu = features.extract_batch(ladder_positions("cpu"), True, False,
+                                   True)
+    check(torch.equal(x.cpu(), x_cpu), "card and CPU planes differ")
+    check(float(x[..., 30].sum() + x[..., 31].sum()) > 0,
+          "no ladder plane set in the sanity positions")
+    limits = (BF16_VALUE_ATOL, BF16_POLICY_ATOL, BF16_POLICY_KL)
+    v, p = card(x)
+    v32, p32 = host(x_cpu)
+    check(torch.isfinite(v).all() and torch.isfinite(p).all(),
+          "non-finite sanity-net outputs")
+    gaps = bf16_gaps(v, p, v32, p32)
+    check(all(g <= lim for g, lim in zip(gaps, limits)),
+          f"bf16 eval off float32 by {gaps} (limits {limits})")
+    wrong = x.clone()
+    wrong[..., 30:32] = 0
+    wrong_gaps = bf16_gaps(*card(wrong), v32, p32)
+    check(any(g > lim for g, lim in zip(wrong_gaps, limits)),
+          f"the limits {limits} pass an eval without planes 30/31 "
+          f"({wrong_gaps})")
+    # the card's top move may differ from float32's only in a near-tie:
+    # its fp32 probability within the policy limit of the top one
+    top = p.float().cpu().argmax(-1)
+    margin = p32.max(-1).values - p32.gather(1, top[:, None])[:, 0]
+    check(float(margin.max()) <= BF16_POLICY_ATOL,
+          f"the card's top moves {top.tolist()} trail float32's "
+          f"{p32.argmax(-1).tolist()} by {margin.tolist()}")
+    phase("sanity net", t0,
+          f"planes 30/31 on from the contract; ladder points "
+          f"{int(x[..., 30].sum())} capture, {int(x[..., 31].sum())} "
+          f"escape; bf16 vs fp32 max |dv|, |dp|, KL {gaps} (limits "
+          f"{limits}); planes 30/31 zeroed {wrong_gaps}, rejected; argmax "
+          f"{top.tolist()} vs {p32.argmax(-1).tolist()}, fp32 margin "
+          f"{[f'{m:.2e}' for m in margin.tolist()]}")
+
+
+# ---------------------------------------------------------------------------
+# 7. timing
 
 
 def leaf_step_bound(states, actions) -> tuple[float, str]:
@@ -328,9 +645,94 @@ def leaf_step_bound(states, actions) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ladder_bound(sub, rungs: int) -> tuple[float, str]:
+    """Least time for one ladder_planes launch: bytes (stones and cid rows
+    and to_move in, two bool planes out) over HBM rate, or the operations
+    of the rungs the reading needs on these boards (the plain version
+    counts them, an escape's counter-attacks up to the first that
+    captures) and the candidate scan, over the scalar issue rate."""
+    b = sub.batch
+    nbytes = b * (2 * 4 * 384 + 4 + 2 * 361)
+    ops = rungs * LADDER_OPS_PER_RUNG + b * 361 * LADDER_OPS_PER_POINT
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def warp_chain(stats) -> int:
+    """The most rungs one warp of the ladder kernel walks in a row: each
+    board's chases dealt round-robin over LADDER_WARPS warps, in the
+    order the plain version lists them."""
+    board, rungs = stats["job_board"], stats["job_rungs"]
+    if board.numel() == 0:
+        return 0
+    rank = (torch.arange(board.numel(), device=board.device)
+            - torch.searchsorted(board, board))
+    key = board * LADDER_WARPS + rank % LADDER_WARPS
+    total = torch.zeros(int(board.max() + 1) * LADDER_WARPS,
+                        dtype=torch.long, device=board.device)
+    return int(total.index_add_(0, key, rungs).max())
+
+
+def ladder_rung_ms(dev) -> tuple[float, int]:
+    """The kernel's time per rung of one serial chase: one staircase board
+    against one empty board, both B=1 graph replays, over the staircase's
+    longest warp chain.  Returns ``(ms per rung, rungs)``."""
+    from dream_go_torch.go import boards
+    from dream_go_torch.ops import ladder_kernel as LK
+
+    stair = ladder_args(boards.from_stones(boards.ladder_stress()[:1], dev))
+    empty = ladder_args(boards.from_stones([[0] * 361], dev))
+    stats = {}
+    LK.ladder_planes_plain(*stair, stats=stats)
+    chain = warp_chain(stats)
+    t_stair = graph_ms(lambda: LK.ladder_planes_kernel(*stair))
+    t_empty = graph_ms(lambda: LK.ladder_planes_kernel(*empty))
+    return (t_stair - t_empty) / chain, chain
+
+
+def libs_after_bound(sub) -> tuple[float, str]:
+    """Least time for one board_features_raw launch: bytes (stones and cid
+    rows in, five i32 rows out) over HBM rate, or its operations (per
+    point ~20 for the liberties and bit sets, and per point and colour 12
+    words x ~8 for the counting identity) over the scalar issue rate."""
+    b = sub.batch
+    nbytes = b * (2 * 4 * 384 + 5 * 4 * 361)
+    ops = b * 361 * (20 + 2 * 12 * 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def events_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=50):
+    """Card time per launch of ``fn`` captured ``reps`` times in a CUDA
+    graph and replayed (the host-side wrapper cost excluded)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return events_ms(graph.replay, 5) / reps
+
+
 def timing_phase(states, actions):
+    from dream_go_torch.ops import ladder_kernel as LK
     from dream_go_torch.ops import layout
     from dream_go_torch.ops import leaf_step as L
+    from dream_go_torch.ops import libs_after as LA
 
     t0 = time.monotonic()
     b = TIMING_BATCH
@@ -338,35 +740,53 @@ def timing_phase(states, actions):
     sub = states.index(sel)
     args = [t.contiguous() for t in layout.pack_states(sub)]
     act, komi = actions[sel].contiguous(), sub.komi.contiguous()
+    out = {}
 
-    def events_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+    leaf = lambda: L.leaf_step(*args, act, komi)
+    out["leaf_step"] = dict(
+        ms=graph_ms(leaf), eager_ms=events_ms(leaf, 50),
+        plain_ms=events_ms(lambda: L.leaf_step_plain(*args, act, komi), 10),
+        bound=leaf_step_bound(sub, act))
 
-    # the kernel alone: launches captured in a CUDA graph run back to back
-    # (host-side wrapper cost excluded); eager calls for comparison
-    L.leaf_step(*args, act, komi)
-    torch.cuda.synchronize()
-    reps = 50
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            L.leaf_step(*args, act, komi)
-    kernel_ms = events_ms(graph.replay, 5) / reps
-    eager_ms = events_ms(lambda: L.leaf_step(*args, act, komi), 50)
-    plain_ms = events_ms(lambda: L.leaf_step_plain(*args, act, komi), 10)
-    bound_ms, bound_by = leaf_step_bound(sub, act)
-    phase("timing", t0, f"leaf_step B={b}: kernel {kernel_ms * 1e3:.2f} us "
-          f"(eager call {eager_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.2f} "
-          f"us ({bound_by}), plain {plain_ms * 1e3:.1f} us")
-    return kernel_ms, plain_ms, bound_ms, bound_by
+    largs = ladder_args(sub)
+    stats = {}
+    LK.ladder_planes_plain(*largs, stats=stats)
+    rungs = int(stats["job_rungs"].sum())
+    ladder = lambda: LK.ladder_planes_kernel(*largs)
+    out["ladder_planes"] = dict(
+        ms=graph_ms(ladder), eager_ms=events_ms(ladder, 50),
+        plain_ms=events_ms(lambda: LK.ladder_planes_plain(*largs), 3),
+        bound=ladder_bound(sub, rungs))
+    rung_ms, stair_chain = ladder_rung_ms(states.stones.device)
+    longest, chain = stats["longest_chase"], warp_chain(stats)
+
+    feats = lambda: LA.features_raw(args[0], args[1])
+    out["board_features_raw"] = dict(
+        ms=graph_ms(feats), eager_ms=events_ms(feats, 50),
+        plain_ms=events_ms(lambda: LA.features_raw_plain(args[0], args[1]),
+                           10),
+        bound=libs_after_bound(sub))
+    log(f"  ladder_planes serial chain: {rung_ms * 1e3:.3f} us a rung "
+        f"(staircase, {stair_chain} rungs, B=1); at B={b} the longest chase "
+        f"is {longest} rungs ({longest * rung_ms * 1e3:.2f} us) and the "
+        f"longest warp chain {chain} rungs ({chain * rung_ms * 1e3:.2f} us) "
+        f"of {rungs} rungs in all")
+    phase("timing", t0, f"B={b}: " + "; ".join(
+        f"{k} kernel {v['ms'] * 1e3:.2f} us (eager call "
+        f"{v['eager_ms'] * 1e3:.2f} us), bound {v['bound'][0] * 1e3:.2f} us "
+        f"({v['bound'][1]}), plain {v['plain_ms'] * 1e3:.1f} us"
+        for k, v in out.items()))
+    return out
+
+
+SOURCES = {
+    "leaf_step": ("dream_go_torch/csrc/leaf_step.cu",
+                  "dream_go_tpu/ops/leaf_step.py:383"),
+    "ladder_planes": ("dream_go_torch/csrc/ladder_planes.cu",
+                      "dream_go_tpu/ops/ladder_kernel.py:518"),
+    "board_features_raw": ("dream_go_torch/csrc/libs_after.cu",
+                           "dream_go_tpu/ops/libs_after.py:176"),
+}
 
 
 def main() -> int:
@@ -374,17 +794,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     build_phase()
-    max_err, states, actions = parity_phase(dev)
+    errs, states, actions = parity_phase(dev)
     reference_phase(dev)
-    launches = selfplay_phase()
-    kernel_ms, plain_ms, bound_ms, bound_by = timing_phase(states, actions)
+    launches = selfplay_phase(dev)
+    sanity_phase(dev)
+    times = timing_phase(states, actions)
     log(json.dumps({"kernels": [{
-        "name": "leaf_step", "route": "cuda",
-        "source": "dream_go_torch/csrc/leaf_step.cu",
-        "replaces": "dream_go_tpu/ops/leaf_step.py:383",
-        "launches": launches["leaf_step"], "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "name": name, "route": "cuda", "source": SOURCES[name][0],
+        "replaces": SOURCES[name][1], "launches": launches[name],
+        "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": None} for name, t in times.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,19 @@
 
     python -m dream_go_torch.cli --self-play N --continuous \\
         --num-rollout R --num-games B [--max-moves M] [--seed S] \\
-        [--weights dream_go.json] [--device cuda|cpu]
+        [--weights dream_go.json] [--device cuda|cpu] \\
+        [--ladder-features | --no-ladder-features]
 
 writes one SGF line per finished game to stdout, as
 `dream_go_tpu/cli.py:230-253` does.  Without ``--weights`` the net is a
 seeded random tower at the ``ModelConfig`` width (128 x 9 unless
-``--num-channels``/``--num-blocks`` say otherwise).  The fused leaf kernel
-and EARLY-C termination are on for ``cuda`` (``--no-fused`` and
-``--no-adaptive`` turn them off).  On ``cpu`` the tower computes in
-float32.
+``--num-channels``/``--num-blocks`` say otherwise).  Ladder planes 30/31
+follow the loaded net's input contract (its ``ladder_features:0`` tensor;
+off for a random net) unless ``--ladder-features``/``--no-ladder-features``
+say otherwise; on ``cuda`` they come from the exact ladder kernel, on
+``cpu`` from the greedy reader.  The fused leaf kernel and EARLY-C
+termination are on for ``cuda`` (``--no-fused`` and ``--no-adaptive`` turn
+them off).  On ``cpu`` the tower computes in float32.
 """
 
 from __future__ import annotations
@@ -39,6 +43,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num-samples", type=int, default=8)
     parser.add_argument("--softmax-temperature", type=float, default=1.0)
     parser.add_argument("--komi", type=float, default=7.5)
+    parser.add_argument("--ladder-features", action="store_true",
+                        default=None, dest="ladder_features",
+                        help="compute ladder planes 30/31 (unset: follow "
+                             "the loaded net's input contract, the "
+                             "ladder_features:0 tensor of the weights)")
+    parser.add_argument("--no-ladder-features", action="store_false",
+                        default=None, dest="ladder_features",
+                        help="skip ladder planes even if the loaded net's "
+                             "contract enables them")
     parser.add_argument("--max-moves", type=int, default=None,
                         help="cap game length (default 722)")
     parser.add_argument("--no-fused", action="store_true",
@@ -53,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def load_predictor(args, device):
     """The net: ``--weights`` through ``load_json``, else a seeded random
-    tower at the configured width."""
+    tower at the configured width.  Unless the caller chose,
+    ``args.ladder_features`` takes the net's input contract."""
     from .mcts import predictor as P
     from .models import params as MP
     from .models import tower as T
@@ -62,10 +76,6 @@ def load_predictor(args, device):
     if args.weights:
         with open(args.weights) as fh:
             cfg, folded = MP.load_json(fh.read())
-        if cfg.ladder_features:
-            raise NotImplementedError(
-                "this net needs ladder planes 30/31, which the port does "
-                "not compute yet")
         model = T.from_state_dict(cfg, MP.to_state_dict(cfg, folded),
                                   device, dtype)
     else:
@@ -73,11 +83,14 @@ def load_predictor(args, device):
                           num_blocks=args.num_blocks,
                           num_samples=args.num_samples)
         model = T.init_tower(cfg, seed=0, device=device, dtype=dtype)
+    if args.ladder_features is None:
+        args.ladder_features = cfg.ladder_features
     return P.net_predictor(model, softmax_temp=args.softmax_temperature)
 
 
 def search_config(args, device) -> SearchConfig:
     cfg = SearchConfig(num_rollout=args.num_rollout,
+                       ladder_features=bool(args.ladder_features),
                        fused=False if args.no_fused else None,
                        adaptive=False if args.no_adaptive else None)
     return cfg.resolve_auto(device)

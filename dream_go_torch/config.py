@@ -2,8 +2,8 @@
 
 Port of `dream_go_tpu/config.py` (``Schedule``, ``SearchConfig``,
 ``SelfPlayConfig``, ``ModelConfig``), with the fields the port's code
-reads; the others (ladder readers, ex-it, the opt-in TPU kernels, ...)
-come with the code that reads them.  Schedules are piecewise-linear
+reads; the others (ex-it, the env-step option, ...) come with the code
+that reads them.  Schedules are piecewise-linear
 tables over the total visit count, written ``"100=1.87,200=1.49"``;
 :meth:`Schedule.at` evaluates one on a tensor with the same arithmetic as
 ``jnp.interp``.
@@ -89,15 +89,30 @@ class SearchConfig:
     children_slots: int = 32           # sparse child slots per non-root node
     reuse_budget: bool = True          # reused visits count toward budget
     fused: bool | None = None          # leaf_step kernel; None = on for cuda
+    ladder_features: bool = False      # planes 30/31 (the reference always
+    #                                    computes them; a net's weights say
+    #                                    whether it needs them, and the CLI
+    #                                    follows that contract)
+    ladders_exact: bool | None = None  # exact branching reader (the ladder
+    #                                    kernel on cuda); False = greedy
+    #                                    single line; None = auto (exact
+    #                                    on cuda, greedy on the CPU).  One
+    #                                    value drives the root eval and
+    #                                    the leaves
+    feature_kernel: bool = False       # liberties-after feature kernel for
+    #                                    root evals and unfused leaves
 
     def resolve_auto(self, device) -> "SearchConfig":
         """Fill the ``None`` (auto) knobs for ``device``: the fused leaf
-        kernel and EARLY-C termination are on for ``cuda`` and off for the
-        CPU.  An explicit ``True``/``False`` from the caller always wins."""
+        kernel, EARLY-C termination and the exact ladder reader are on for
+        ``cuda`` and off for the CPU.  An explicit ``True``/``False`` from
+        the caller always wins."""
         on_gpu = torch.device(device).type == "cuda"
         fused = on_gpu if self.fused is None else self.fused
         adaptive = on_gpu if self.adaptive is None else self.adaptive
-        return dataclasses.replace(self, fused=fused, adaptive=adaptive)
+        exact = on_gpu if self.ladders_exact is None else self.ladders_exact
+        return dataclasses.replace(self, fused=fused, adaptive=adaptive,
+                                   ladders_exact=exact)
 
 
 @dataclasses.dataclass(frozen=True)

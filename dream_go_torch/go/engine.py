@@ -148,8 +148,8 @@ def chain_liberties(stones: torch.Tensor, chain_id: torch.Tensor):
     keep = dedup4(nbr_cid, is_stone) & (stones == EMPTY)[:, :, None]
     chain_libs = torch.zeros(b, NN + 1, dtype=torch.int32,
                              device=stones.device)
-    chain_libs.scatter_add_(1, nbr_cid.clamp(0, NN).reshape(b, -1).long(),
-                            keep.to(torch.int32).reshape(b, -1))
+    chain_libs.scatter_add_(1, nbr_cid.clamp(0, NN).reshape(b, 4 * NN).long(),
+                            keep.to(torch.int32).reshape(b, 4 * NN))
     chain_libs[:, NN] = 0
     point_libs = torch.where(
         stones != EMPTY,
@@ -174,7 +174,7 @@ def _capture_info(state: GoState, color):
     nbr_cid = gather_nbr(state.chain_id, -1)
     b = nbr_cid.shape[0]
     nbr_libs = chain_libs.gather(
-        1, nbr_cid.clamp(0, NN).reshape(b, -1).long()).reshape(b, NN, 4)
+        1, nbr_cid.clamp(0, NN).reshape(b, 4 * NN).long()).reshape(b, NN, 4)
     opp = OFFBOARD - _color(color, state.stones)
     is_cap = (nbr_st == opp[:, :, None]) & (nbr_libs == 1)
     return nbr_st, nbr_cid, nbr_libs, dedup4(nbr_cid, is_cap)

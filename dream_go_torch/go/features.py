@@ -1,14 +1,13 @@
 """V1 input feature planes for a batch of boards.
 
 Port of `dream_go_tpu/go/features.py` (``features_v1``, ``liberties_if``,
-``extract_batch``) for the V1 set without ladder planes.  Plane order
-(`features.rs:104-148`):
+``features_v1_batch``, ``extract_batch``) for the V1 set.  Plane order (`features.rs:104-148`):
 
   0  komi plane if black to move     1  komi plane if white to move
   2  constant: any move is super-ko  3  most recent move   4 previous move
   5-10   own liberties >= 1..6       11-16  own liberties after move >= 1..6
   17-22  opp liberties >= 1..6       23-28  opp liberties after move >= 1..6
-  29 is-super-ko  30/31 ladder capture/escape (zero here)
+  29 is-super-ko  30/31 ladder capture/escape (`go/ladder.py`)
 
 "Liberties after move" comes from the counting identity
 
@@ -81,21 +80,37 @@ def liberties_if(state: GoState, color, chain_libs=None) -> torch.Tensor:
     return (open_after & reaches & ~eye[None]).sum(-1, dtype=torch.int32)
 
 
-def features_v1(state: GoState) -> torch.Tensor:
-    """float32[B, 19, 19, 32] V1 planes (NHWC, the JAX package's layout)."""
+def features_v1(state: GoState, ladder_capture=None, ladder_escape=None,
+                libs_after=None, point_libs=None,
+                pseudo=None) -> torch.Tensor:
+    """float32[B, 19, 19, 32] V1 planes (NHWC, the JAX package's layout).
+
+    ``ladder_capture``/``ladder_escape`` (bool[B, 361]) fill planes 30/31
+    (zero when absent).  ``libs_after`` (the to-move and opponent
+    liberties after a move), ``point_libs`` and ``pseudo`` (to-move and
+    opponent pseudo-legality) may come precomputed from the feature kernel
+    (`ops/libs_after.py`)."""
     stones = state.stones
     me = state.to_move.reshape(-1, 1)
     opp = OFFBOARD - me
-    point_libs, chain_libs = chain_liberties(stones, state.chain_id)
+    chain_libs = None
+    if point_libs is None:
+        point_libs, chain_libs = chain_liberties(stones, state.chain_id)
     own_libs = torch.where(stones == me, point_libs, 0)
     opp_libs = torch.where(stones == opp, point_libs, 0)
 
-    valid_me = pseudo_legal_mask(state, state.to_move)
-    valid_opp = pseudo_legal_mask(state, opp.reshape(-1))
-    libs_if_me = torch.where(
-        valid_me, liberties_if(state, state.to_move, chain_libs), 0)
-    libs_if_opp = torch.where(
-        valid_opp, liberties_if(state, opp.reshape(-1), chain_libs), 0)
+    if pseudo is not None:
+        valid_me, valid_opp = pseudo
+    else:
+        valid_me = pseudo_legal_mask(state, state.to_move)
+        valid_opp = pseudo_legal_mask(state, opp.reshape(-1))
+    if libs_after is not None:
+        raw_me, raw_opp = libs_after
+    else:
+        raw_me = liberties_if(state, state.to_move, chain_libs)
+        raw_opp = liberties_if(state, opp.reshape(-1), chain_libs)
+    libs_if_me = torch.where(valid_me, raw_me, 0)
+    libs_if_opp = torch.where(valid_opp, raw_opp, 0)
 
     ko = superko_mask(state, state.to_move) & valid_me
     any_ko = ko.any(-1, keepdim=True)
@@ -118,11 +133,42 @@ def features_v1(state: GoState) -> torch.Tensor:
     planes += [f32(libs_if_opp >= k) for k in range(1, 7)]
     planes.append(f32(ko))
     zeros = torch.zeros(b, NN, device=stones.device)
-    planes += [zeros, zeros]
+    planes.append(zeros if ladder_capture is None else f32(ladder_capture))
+    planes.append(zeros if ladder_escape is None else f32(ladder_escape))
     return torch.stack(planes, dim=-1).reshape(b, 19, 19, NUM_FEATURES_V1)
 
 
-def extract_batch(states: GoState) -> torch.Tensor:
-    """Batched network input: the V1 planes (the only plane set the port
-    computes so far; ladder planes 30/31 stay zero)."""
-    return features_v1(states)
+def features_v1_batch(states: GoState, with_ladders: bool = False,
+                      use_kernel: bool = False,
+                      ladders_exact: bool = False) -> torch.Tensor:
+    """V1 planes for a batch; ``use_kernel`` takes the liberties after a
+    move, the chain liberties and pseudo-legality from the feature kernel
+    (`ops/libs_after.py`); ``ladders_exact`` picks the ladder reader
+    (:func:`dream_go_torch.go.ladder.ladder_planes_batch`)."""
+    from . import ladder
+    from ..ops import layout, libs_after
+
+    caps = escs = None
+    if with_ladders:
+        caps, escs = ladder.ladder_planes_batch(
+            *layout.board_rows(states), states.to_move, ladders_exact)
+    if not use_kernel:
+        return features_v1(states, ladder_capture=caps, ladder_escape=escs)
+    raw = libs_after.board_features_raw(states)
+    black = (states.to_move == BLACK)[:, None]
+    pick = lambda a, b: torch.where(black, raw[a], raw[b])
+    return features_v1(
+        states, ladder_capture=caps, ladder_escape=escs,
+        libs_after=(pick("libs_if_black", "libs_if_white"),
+                    pick("libs_if_white", "libs_if_black")),
+        point_libs=raw["point_libs"],
+        pseudo=(pick("pseudo_black", "pseudo_white"),
+                pick("pseudo_white", "pseudo_black")))
+
+
+def extract_batch(states: GoState, with_ladders: bool = False,
+                  use_kernel: bool = False,
+                  ladders_exact: bool = False) -> torch.Tensor:
+    """Batched network input: the V1 planes, the one set the port
+    computes."""
+    return features_v1_batch(states, with_ladders, use_kernel, ladders_exact)

@@ -3,8 +3,9 @@
 Port of `dream_go_tpu/mcts/search.py`.  One fixed-capacity array tree per
 game; every simulation selects a leaf in each game's tree, applies the
 action and featurizes the leaf (on the fused path, one ``leaf_step``
-kernel launch for the whole batch), runs one batched network evaluation,
-and inserts/backs up.  The tree layout, formulas and reference behaviours
+kernel launch for the whole batch, plus one ladder-kernel launch when the
+net takes planes 30/31), runs one batched network evaluation, and
+inserts/backs up.  The tree layout, formulas and reference behaviours
 are those of the JAX package:
 
 - two-tier edges: the root holds full-width [362] child/visit/value
@@ -33,9 +34,8 @@ import dataclasses
 import torch
 
 from ..config import SearchConfig
-from ..go import engine
+from ..go import engine, features, ladder
 from ..go.engine import GoState
-from ..go.features import extract_batch
 from ..go.options import scoring_mask, standard_mask
 from ..ops import layout
 from ..ops.leaf_step import leaf_step
@@ -213,11 +213,29 @@ def _dirichlet_mix(gen, prior, candidate, beta, alpha):
     return torch.where(candidate, (1.0 - beta) * prior + beta * g, prior)
 
 
+def _net_input(states: GoState, cfg: SearchConfig) -> torch.Tensor:
+    return features.extract_batch(states, cfg.ladder_features,
+                                  cfg.feature_kernel, bool(cfg.ladders_exact))
+
+
+def _leaf_ladder_planes(leaf_packed, cfg: SearchConfig,
+                        planes: torch.Tensor) -> None:
+    """Write planes 30/31 of the fused leaf features in place, from the
+    leaves' kernel-layout rows, with the reader that also read the
+    roots."""
+    cap, esc = ladder.ladder_planes_batch(
+        leaf_packed[0], leaf_packed[1], leaf_packed[4][:, 0, 0],
+        bool(cfg.ladders_exact))
+    b = planes.shape[0]
+    planes[:, 30] = cap.to(planes.dtype).reshape(b, 19, 19)
+    planes[:, 31] = esc.to(planes.dtype).reshape(b, 19, 19)
+
+
 def init_trees(states: GoState, predictor, gen: torch.Generator,
                cfg: SearchConfig, num_nodes: int,
                use_scoring: torch.Tensor | None) -> Tree:
     """Evaluate the roots (batched) and allocate one tree per game."""
-    value, policy = predictor(extract_batch(states))
+    value, policy = predictor(_net_input(states, cfg))
     candidate = standard_mask(states)
     if use_scoring is not None:
         candidate = torch.where(use_scoring[:, None], scoring_mask(states),
@@ -506,6 +524,8 @@ def run_search(trees: Tree, predictor, cfg: SearchConfig, num_sims: int,
                 *_widen_rows(parent), action, parent.komi)
             leaf_states = _narrow_rows(leaf_packed, parent.komi)
             planes = feats_k[:, :, :361].reshape(batch, 32, 19, 19)
+            if cfg.ladder_features:
+                _leaf_ladder_planes(leaf_packed, cfg, planes)
             candidate = torch.cat(
                 [cand, torch.ones_like(cand[:, :1])], dim=1)
             if use_scoring is not None:
@@ -515,7 +535,7 @@ def run_search(trees: Tree, predictor, cfg: SearchConfig, num_sims: int,
             value, policy = predictor.planes(planes)
         else:
             leaf_states = engine.step(parent, action)
-            value, policy = predictor(extract_batch(leaf_states))
+            value, policy = predictor(_net_input(leaf_states, cfg))
         en = None if budget is None else (start + i) < budget
         _insert_backup_flat(
             trees, node, action, k_exit, path_n, path_k, root_a,

@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..go.engine import GoState
+from ..go.engine import GoState, new_states
 from ..go.topology import NN
 
 NP = 384   # padded point axis
@@ -63,6 +63,12 @@ def pack_states(states: GoState):
             meta, hashw[:, None, :])
 
 
+def board_rows(states: GoState):
+    """The stones and cid rows of :func:`pack_states` alone."""
+    return (_pad_points(states.stones.to(torch.int32))[:, None, :],
+            _pad_points(states.chain_id)[:, None, :])
+
+
 def unpack_states(template: GoState, stones, cid, cxp, hist, meta,
                   hashw) -> GoState:
     """Kernel state arrays -> batched GoState (komi from ``template``)."""
@@ -79,3 +85,14 @@ def unpack_states(template: GoState, stones, cid, cxp, hist, meta,
         last_two=torch.stack([meta[:, 0, 5], meta[:, 0, 6]], dim=1),
         done=meta[:, 0, 4] != 0,
     )
+
+
+def rows_to_states(stones, cid, to_move=None) -> GoState:
+    """Stones and cid rows (and to_move) -> a GoState holding those
+    fields; the others are those of fresh boards."""
+    state = new_states(stones.shape[0], device=stones.device).replace(
+        stones=stones[:, 0, :NN].to(torch.int8),
+        chain_id=cid[:, 0, :NN].contiguous())
+    if to_move is not None:
+        state = state.replace(to_move=to_move.to(torch.int8))
+    return state

@@ -92,18 +92,6 @@ _SHAPES = {"stones": (1, NP), "cid": (1, NP), "cxp": (2, NP),
            "hist": (2, 128), "meta": (1, 8), "hashw": (1, 8)}
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"leaf_step: {name} is on {t.device}, not {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"leaf_step: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"leaf_step: {name} must have shape {shape}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"leaf_step: {name} must be contiguous")
-
-
 def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
     """Apply ``action`` per board and featurize the result (see module
     docstring).  CPU tensors take :func:`leaf_step_plain`; CUDA tensors
@@ -119,9 +107,10 @@ def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
     state = dict(stones=stones, cid=cid, cxp=cxp, hist=hist, meta=meta,
                  hashw=hashw)
     for name, t in state.items():
-        _check(name, t, torch.int32, (b,) + _SHAPES[name], dev)
-    _check("action", action, torch.int32, (b,), dev)
-    _check("komi", komi, torch.float32, (b,), dev)
+        build.check_arg("leaf_step", name, t, torch.int32,
+                        (b,) + _SHAPES[name], dev)
+    build.check_arg("leaf_step", "action", action, torch.int32, (b,), dev)
+    build.check_arg("leaf_step", "komi", komi, torch.float32, (b,), dev)
     outs = [torch.empty_like(t) for t in state.values()]
     feats = torch.empty(b, 32, NP, dtype=torch.float32, device=dev)
     cand = torch.empty(b, NN, dtype=torch.bool, device=dev)
@@ -130,11 +119,6 @@ def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
     zob = _zobrist(str(dev))
     ptrs = [t.data_ptr() for t in (*state.values(), action, komi, zob,
                                    *outs, feats, cand)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(*ptrs, b, stream)
-    if err != 0:
-        raise RuntimeError(f"leaf_step kernel launch failed: CUDA error "
-                           f"{err}")
+    build.launch("leaf_step", _kernel(), dev, *ptrs, b)
     launches += 1
     return tuple(outs), feats, cand

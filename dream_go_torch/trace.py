@@ -1,19 +1,21 @@
 """Where the self-play time goes on the card.
 
     python -m dream_go_torch.trace [--games 256] [--rollouts 64] \\
-        [--moves 3] [--profile-sims 8]
+        [--moves 3] [--profile-sims 8] [--ladder-features] \\
+        [--no-fused] [--feature-kernel]
 
 Runs the CLI's continuous self-play (by default at the full 128 x 9
 width, seeded random weights) for a few batch moves and prints two
 breakdowns:
 
 1. host wall time per search stage (root evaluation, Benson scorability,
-   select, leaf_step, ScoringSearch masks, network, backup, re-rooting,
-   move choice), each stage timed between two ``torch.cuda.synchronize()``
-   calls.  Stages nest where one calls another: the root evaluation
-   includes its own network call and masks, and "network" and "scoring
-   mask" count both the roots' and the leaves' calls.  Also the number of
-   tree levels each select walks (the deepest game of the batch);
+   select, leaf_step, ladder planes, the feature kernel, ScoringSearch
+   masks, network, backup, re-rooting, move choice), each stage timed
+   between two ``torch.cuda.synchronize()`` calls.  Stages nest where one
+   calls another: the root evaluation includes its own network call, masks
+   and ladder planes, and "network", "ladder planes" and "scoring mask"
+   count both the roots' and the leaves' calls.  Also the number of tree
+   levels each select walks (the deepest game of the batch);
 2. a ``torch.profiler`` window over ``--profile-sims`` simulations: device
    time by kernel, and the device's busy and idle share of the window.
 
@@ -40,12 +42,22 @@ def _sync():
 
 
 def _timed(table, name, fn):
+    """``fn`` with its calls timed under ``name``; a call made inside
+    another call of the same stage is not counted twice."""
+    active = [0]
+
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
+        if active[0]:
+            return fn(*args, **kwargs)
+        active[0] += 1
         _sync()
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _sync()
+        try:
+            out = fn(*args, **kwargs)
+            _sync()
+        finally:
+            active[0] -= 1
         table[name][0] += time.perf_counter() - t0
         table[name][1] += 1
         return out
@@ -53,11 +65,35 @@ def _timed(table, name, fn):
     return wrapper
 
 
+def _cli_args(args, extra=()):
+    from . import cli
+
+    argv = ["--self-play", str(args.games), "--continuous", "--num-rollout",
+            str(args.rollouts), "--num-games", str(args.games),
+            "--num-channels", str(args.channels),
+            "--num-blocks", str(args.blocks), *extra]
+    if args.ladder_features:
+        argv.append("--ladder-features")
+    if args.no_fused:
+        argv.append("--no-fused")
+    return cli.build_parser().parse_args(argv)
+
+
+def _search_config(args, cli_args):
+    import dataclasses
+
+    from . import cli
+
+    cfg = cli.search_config(cli_args, args.device)
+    return dataclasses.replace(cfg, feature_kernel=args.feature_kernel)
+
+
 def stage_breakdown(args) -> dict:
     """Self-play with every search stage wrapped in a synchronised timer."""
     from . import cli
-    from .go import benson
+    from .go import benson, ladder
     from .mcts import search as S
+    from .ops import libs_after
     from .selfplay import search_play as SP
 
     table = collections.defaultdict(lambda: [0.0, 0])
@@ -65,6 +101,8 @@ def stage_breakdown(args) -> dict:
         (S, "init_trees", "root eval (init_trees)"),
         (S, "_select_flat", "select"),
         (S, "leaf_step", "leaf_step (kernel)"),
+        (ladder, "ladder_planes_batch", "ladder planes (leaves + roots)"),
+        (libs_after, "board_features_raw", "feature kernel"),
         (S, "scoring_mask", "scoring mask (leaves + roots)"),
         (S, "_insert_backup_flat", "insert + backup"),
         (S, "reroot", "reroot"),
@@ -86,15 +124,11 @@ def stage_breakdown(args) -> dict:
     SP.bn = _Proxy(benson, is_scorable=_timed(
         table, "is_scorable (roots)", benson.is_scorable))
     try:
-        cli_args = cli.build_parser().parse_args([
-            "--self-play", str(args.games), "--continuous", "--num-rollout",
-            str(args.rollouts), "--num-games", str(args.games),
-            "--max-moves", str(args.moves), "--seed", "0",
-            "--num-channels", str(args.channels),
-            "--num-blocks", str(args.blocks)])
+        cli_args = _cli_args(args, ("--max-moves", str(args.moves),
+                                    "--seed", "0"))
         predictor = cli.load_predictor(cli_args, args.device)
         predictor.planes = _timed(table, "network", predictor.planes)
-        cfg = cli.search_config(cli_args, args.device)
+        cfg = _search_config(args, cli_args)
         from .config import SelfPlayConfig
 
         _sync()
@@ -137,13 +171,10 @@ def profile_window(args) -> dict:
     from .go import benson, engine
     from .mcts import search as S
 
-    cli_args = cli.build_parser().parse_args([
-        "--self-play", str(args.games), "--continuous", "--num-rollout",
-        str(args.rollouts), "--num-games", str(args.games),
-        "--num-channels", str(args.channels), "--num-blocks", str(args.blocks)])
+    cli_args = _cli_args(args)
     dev = args.device
     predictor = cli.load_predictor(cli_args, dev)
-    cfg = cli.search_config(cli_args, dev)
+    cfg = _search_config(args, cli_args)
     states = engine.new_states(args.games, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     use_scoring = ~benson.is_scorable(states) & ~states.done
@@ -181,6 +212,14 @@ def main(argv=None):
     parser.add_argument("--profile-sims", type=int, default=8)
     parser.add_argument("--channels", type=int, default=128)
     parser.add_argument("--blocks", type=int, default=9)
+    parser.add_argument("--ladder-features", action="store_true",
+                        help="compute ladder planes 30/31")
+    parser.add_argument("--no-fused", action="store_true",
+                        help="the unfused leaf path (rules engine + "
+                             "feature extraction)")
+    parser.add_argument("--feature-kernel", action="store_true",
+                        help="root evals and unfused leaves take the "
+                             "liberties-after feature kernel")
     parser.add_argument("--device", type=torch.device, default="cuda",
                         help="cpu only rehearses the script: its times "
                              "are not device times")

@@ -19,3 +19,12 @@ def to_sgf(p: int) -> str:
     if p == PASS or p < 0:
         return ""
     return _SGF_LETTERS[p % N] + _SGF_LETTERS[p // N]
+
+
+def from_sgf(s: str) -> int:
+    """Parse CGoban coordinates; '' or 'tt' is a pass."""
+    if s == "" or s == "tt":
+        return PASS
+    if len(s) != 2:
+        raise ValueError(f"bad SGF coordinate {s!r}")
+    return N * _SGF_LETTERS.index(s[1]) + _SGF_LETTERS.index(s[0])

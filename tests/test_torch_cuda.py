@@ -84,3 +84,89 @@ def test_leaf_step_kernel_rejects_bad_inputs(cuda_device):
     bad[2] = args[2].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         L.leaf_step(*bad, action, states.komi)
+
+
+# ---------------------------------------------------------------------------
+# ladder planes (K2) and the liberties-after feature kernel (K3)
+
+from dream_go_torch.go import boards  # noqa: E402
+from dream_go_torch.ops import ladder_kernel as LK  # noqa: E402
+from dream_go_torch.ops import libs_after as LA  # noqa: E402
+
+PT = lambda r, c: 19 * r + c
+
+
+def _curated(dev):
+    """The ladder stress boards (black to move): the 31-rung staircase, a
+    broken staircase, the 48-capture and the 12-escape swarms."""
+    return boards.from_stones(boards.ladder_stress(), dev)
+
+
+def _ladder_args(states):
+    rows = layout.pack_states(states)
+    return rows[0], rows[1], states.to_move.to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 256])
+def test_ladder_kernel_matches_plain(cuda_device, batch):
+    states, _ = _boards(batch, cuda_device, seed=batch + 1)
+    before = LK.launches
+    got = LK.ladder_planes_kernel(*_ladder_args(states))
+    torch.cuda.synchronize()
+    assert LK.launches == before + 1
+    want = LK.ladder_planes_plain(*_ladder_args(states))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_ladder_kernel_on_stress_boards(cuda_device):
+    states = _curated(cuda_device)
+    cap, esc = LK.ladder_planes_kernel(*_ladder_args(states))
+    want = LK.ladder_planes_plain(*_ladder_args(states))
+    assert torch.equal(cap, want[0]) and torch.equal(esc, want[1])
+    assert bool(cap[0, PT(3, 2)]) and not bool(cap[0, PT(2, 3)])
+    assert not bool(cap[1, PT(3, 2)])
+    assert int(cap[2].sum()) > 0 and int(esc[3].sum()) == 12
+    # the fail-safe bounds: too few rungs or no stack loses the capture
+    for budget, stack_cap, hit in ((24, 8, False), (61, 8, False),
+                                   (62, 8, True), (320, 0, False),
+                                   (320, 1, True)):
+        cap, _ = LK.ladder_planes_kernel(*_ladder_args(states), budget,
+                                         stack_cap)
+        want, _ = LK.ladder_planes_plain(*_ladder_args(states), budget,
+                                         stack_cap)
+        assert torch.equal(cap, want)
+        assert bool(cap[0, PT(3, 2)]) == hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 256, 1024])
+def test_libs_after_kernel_matches_plain(cuda_device, batch):
+    states, _ = _boards(batch, cuda_device, seed=batch + 2)
+    rows = layout.pack_states(states)
+    before = LA.launches
+    got = LA.features_raw(rows[0], rows[1])
+    torch.cuda.synchronize()
+    assert LA.launches == before + 1
+    assert torch.equal(got, LA.features_raw_plain(rows[0], rows[1]))
+
+
+@pytest.mark.cuda
+def test_ladder_and_libs_after_reject_bad_inputs(cuda_device):
+    states, _ = _boards(2, cuda_device, seed=0)
+    st, cid, tm = _ladder_args(states)
+    with pytest.raises(TypeError):
+        LK.ladder_planes_kernel(st, cid, tm.long())
+    with pytest.raises(ValueError):
+        LK.ladder_planes_kernel(st, cid.cpu(), tm)
+    with pytest.raises(ValueError):
+        LK.ladder_planes_kernel(st[:, :, :361].contiguous(), cid, tm)
+    with pytest.raises(ValueError):
+        LK.ladder_planes_kernel(st, cid, tm, stack_cap=9)
+    with pytest.raises(TypeError):
+        LA.features_raw(st.to(torch.int16), cid)
+    with pytest.raises(ValueError):
+        LA.features_raw(st, cid.cpu())
+    with pytest.raises(ValueError):
+        LA.features_raw(st[:1], cid)

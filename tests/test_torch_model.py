@@ -1,5 +1,7 @@
 """Port tower, weights loading and predictor against the JAX package."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +132,77 @@ def test_init_tower_is_seeded():
     b = TT.init_tower(cfg, seed=3, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert float(a["value_linear.bias"][0]) == pytest.approx(-0.00502319782)
+
+
+#: (fixture, moves replayed, colour to move): the sanity-test ladder
+#: positions (tests/test_sanity_positions.py LADDER_CASES)
+LADDER_POSITIONS = [("ladder_1", 70, 1), ("ladder_2", 18, 1),
+                    ("ladder_3", 54, 2)]
+
+
+def _ladder_positions():
+    """The three positions replayed by both packages' engines from the
+    SGF files, parsed by each package's own reader."""
+    from dream_go_tpu.go import engine as jeng
+    from dream_go_tpu.utils import sgf as jsgf
+    from dream_go_torch.go import engine as teng
+    from dream_go_torch.utils import sgf as tsgf
+
+    jstep = jax.jit(jeng.step)
+    jstates, tstates = [], []
+    for name, limit, color in LADDER_POSITIONS:
+        with open(f"tests/fixtures/sanity/{name}.sgf") as fh:
+            line = fh.read().replace("\n", "")
+        jg, tg = jsgf.parse_line(line), tsgf.parse_line(line)
+        js = jeng.new_state(jg.komi)
+        ts = teng.new_states(1, komi=tg.komi, device="cpu")
+        for mv in jg.moves[:limit]:
+            js = jstep(js.replace(to_move=jnp.int8(mv.color)),
+                       jnp.int32(mv.point))
+        for mv in tg.moves[:limit]:
+            ts = teng.step(ts.replace(to_move=torch.tensor(
+                [mv.color], dtype=torch.int8)), torch.tensor([mv.point]))
+        jstates.append(js.replace(to_move=jnp.int8(color)))
+        tstates.append(ts.replace(to_move=torch.tensor([color],
+                                                       dtype=torch.int8)))
+    jb = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *jstates)
+    tb = teng.GoState(**{k: torch.cat([getattr(s, k) for s in tstates])
+                         for k in tstates[0].fields()})
+    return jb, tb
+
+
+def test_sanity_net_root_eval_with_ladder_planes_matches_jax():
+    """``tests/fixtures/sanity_net.json`` (64 x 6, its contract has planes
+    30/31) evaluates the three ladder positions: equal planes (exact
+    reader), float32 outputs within ATOL and the same argmax."""
+    import _torch_bridge as B
+    from dream_go_tpu.go import features as JF
+    from dream_go_torch.go import features as TF
+
+    with open("tests/fixtures/sanity_net.json") as fh:
+        text = fh.read()
+    jcfg, jparams = JMP.load_json(text)
+    tcfg, tparams = TMP.load_json(text)
+    assert jcfg.ladder_features and tcfg.ladder_features
+    jb, tb = _ladder_positions()
+    B.assert_states_equal(tb, jb)
+    jx = jax.jit(functools.partial(
+        JF.extract_batch, feature_set="v1", with_ladders=True,
+        use_kernel=False, ladders_exact=True))(jb)
+    tx = TF.extract_batch(tb, True, False, True)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    assert tx[..., 30:].sum() > 0
+
+    jcfg32 = JMC(num_channels=jcfg.num_channels, num_blocks=jcfg.num_blocks,
+                 num_samples=jcfg.num_samples, ladder_features=True,
+                 compute_dtype="float32")
+    jv, jpol = JP.net_predictor(jcfg32, jax.tree_util.tree_map(
+        jnp.asarray, jparams), folded=True)(jx)
+    model = TT.from_state_dict(tcfg, TMP.to_state_dict(tcfg, tparams),
+                               device="cpu", dtype="float32")
+    tv, tpol = TP.net_predictor(model)(tx)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tpol.numpy(), np.asarray(jpol), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(tpol.numpy().argmax(-1),
+                                  np.asarray(jpol).argmax(-1))

@@ -76,3 +76,28 @@ def test_choose_weights_match():
     assert picks[1] == 361
     for b in (0, 2, 3, 4):
         assert w[b, picks[b]] > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_case_ladders():
+    """Planes 30/31 on, the exact reader, the feature kernel at the roots
+    (and the JAX leaves): mid-game boards where ladder starts exist."""
+    js = B.random_states(4, [30, 60, 110, 150], 3)
+    cfg = JSC(dirichlet_noise=0.0, ladder_features=True, ladders_exact=True,
+              feature_kernel=True)
+    return js, JS.search(js, B.det_predictor_jax(), jax.random.PRNGKey(7),
+                         cfg, 16)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_search_with_ladder_planes_matches_jax(fused):
+    js, tj = _jax_case_ladders()
+    ts = B.to_torch(js)
+    from dream_go_torch.go import ladder as TL
+
+    assert int(TL.ladder_planes(ts)[0].sum()) > 0
+    tt = TS.search(ts, B.det_predictor_torch(),
+                   torch.Generator().manual_seed(0),
+                   TSC(dirichlet_noise=0.0, fused=fused, ladder_features=True,
+                       ladders_exact=True, feature_kernel=True), 16)
+    _assert_trees_equal(tt, tj)

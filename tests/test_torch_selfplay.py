@@ -69,3 +69,24 @@ def test_cli_self_play_on_cpu(capsys):
     for line in lines:
         parsed = sgf.parse_line(line)
         assert parsed is not None and len(parsed.moves) >= 4
+
+
+def test_cli_follows_the_sanity_net_contract():
+    """``--weights tests/fixtures/sanity_net.json`` turns planes 30/31 on
+    from the net's contract (the CPU reads them greedy) and self-play
+    writes well-formed SGF lines; ``--no-ladder-features`` overrides."""
+    argv = ["--self-play", "2", "--continuous", "--weights",
+            "tests/fixtures/sanity_net.json", "--num-rollout", "8",
+            "--num-games", "2", "--max-moves", "6", "--device", "cpu"]
+    args = cli.build_parser().parse_args(argv)
+    lines = cli.self_play(args)
+    assert args.ladder_features is True
+    cfg = cli.search_config(args, "cpu")
+    assert cfg.ladder_features and cfg.ladders_exact is False
+    assert len(lines) == 2
+    for line in lines:
+        parsed = sgf.parse_line(line)
+        assert parsed is not None and len(parsed.moves) >= 6
+    off = cli.build_parser().parse_args(argv + ["--no-ladder-features"])
+    cli.load_predictor(off, "cpu")
+    assert off.ladder_features is False
