@@ -14,11 +14,15 @@ Phases, in order, each printed with its seconds:
    ring); the ladder kernel also reads the sanity-test ladder positions,
    the 48-capture and 12-escape swarms, the 31-rung staircase and a broken
    one, and the staircase again with its rung budget and branch stack cut
-   below what the chase needs (both must lose the capture);
+   below what the chase needs (both must lose the capture); the env-step
+   kernel at B = 1, 7, 256, 1024 and 4096 with given random words, its
+   Philox words, one-hot weights (a pass slot and a super-ko point among
+   them, which pass) and zero weights (all pass), then 200 chained steps
+   at B=256 from fresh boards;
 4. reference: small self-play runs on the card (kernels) and on the CPU
    (plain versions) with a deterministic predictor give the same games:
    planes off, planes on (fused), planes on with the feature kernel
-   (unfused);
+   (unfused), and unfused leaves stepped by the env-step kernel;
 5. self-play, each path with the kernels' launch counts set to 0 just
    before it and read just after, at the full 128 x 9 width with seeded
    random weights:
@@ -29,12 +33,21 @@ Phases, in order, each printed with its seconds:
    - the unfused product path, ``SearchConfig(fused=False,
      feature_kernel=True, ladder_features=True)``, 64 games x 16 rollouts
      x 8 moves (the feature kernel and the ladder kernel);
+   - the step-kernel search, ``SearchConfig(fused=False,
+     step_kernel=True)``, 64 games x 16 rollouts x 8 moves (the env-step
+     kernel, and not the leaf-step kernel);
+   - the benchmark entry, ``dream_go_torch.bench.main`` in this process
+     with ``--full`` and two cuts, ``--selfplay-rollouts 64
+     --selfplay-window 60``: the env stage (4096 boards, 151 env-step
+     launches) and the MCTS stage (batch 1024) in full; its JSON line must
+     hold every key of `bench.py:488-508` with finite values;
 6. sanity net: ``tests/fixtures/sanity_net.json`` loads through the CLI's
    code, turns planes 30/31 on from its contract, and evaluates the three
    ladder positions on the card in bf16 within the stated tolerance of the
    CPU's float32 eval, with equal planes;
 7. timing: each kernel at the main path's batch, as CUDA-graph replays and
-   as eager calls, beside its bound and its plain version.
+   as eager calls, beside its bound and its plain version; the env-step
+   kernel at B=256 and at the bench's B=4096.
 
 The second-to-last line is the card's name and power limit, the line
 before it one JSON object with a row per kernel, and the last line
@@ -62,6 +75,18 @@ OFF_MOVES = 8
 #: the unfused feature-kernel path, cut in depth
 UNF_GAMES, UNF_ROLLOUTS, UNF_MOVES = 64, 16, 8
 PARITY_BATCHES = (1, 7, 256, 1024)
+#: the env-step kernel also at the bench's batch
+ENV_BATCHES = PARITY_BATCHES + (4096,)
+ENV_CHAIN_BATCH, ENV_CHAIN_STEPS = 256, 200
+#: the step-kernel search path, cut in depth
+STEP_GAMES, STEP_ROLLOUTS, STEP_MOVES = 64, 16, 8
+#: the bench phase's cuts of its self-play stage
+BENCH_ARGS = ["--device", "cuda", "--full", "--selfplay-rollouts", "64",
+              "--selfplay-window", "60"]
+#: the JSON keys of `bench.py:488-508` (the error key aside)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mcts_sims_per_sec",
+              "selfplay_games_per_sec", "selfplay_vs_reference",
+              "selfplay_rate_mode", "selfplay_batch", "selfplay_sims_per_sec")
 #: the plain ladder reader runs B=1024 in chunks of this many boards
 LADDER_CHUNK = 256
 TIMING_BATCH = 256
@@ -91,14 +116,6 @@ LADDER_WARPS = 8
 #: (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
-
-P = lambda x, y: 19 * y + x
-#: black captures a white stone at (1,1) by playing (2,1); white's
-#: recapture is then a super-ko
-KO_MOVES = [P(1, 0), P(2, 0), P(0, 1), P(3, 1), P(1, 2), P(2, 2), P(10, 10),
-            P(1, 1)]
-KO_ACTION = P(2, 1)
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -167,6 +184,7 @@ def random_boards(n: int, dev, seed: int = 0):
     every 16th (offset 5) board finished by two passes.  Returns
     ``(states, actions)`` with actions chosen for the kind of board."""
     from dream_go_torch.go import engine
+    from dream_go_torch.go.boards import KO_ACTION, KO_MOVES
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     states = engine.new_states(n, device=dev)
@@ -367,12 +385,95 @@ def libs_after_parity(dev, states):
     return float(worst)
 
 
+def env_boards(dev):
+    """4096 boards of :func:`random_boards` with every ko board's capture
+    played: white's recapture at (1,1) is then a super-ko."""
+    from dream_go_torch.go.boards import ko_captured
+
+    states, _ = random_boards(max(ENV_BATCHES), dev, seed=4)
+    return ko_captured(states,
+                       (torch.arange(states.batch, device=dev) % 16) == 3)
+
+
+def env_compare(what, got, want):
+    """Raise unless the kernel's rows and moves equal the plain
+    version's; returns the max abs error (0)."""
+    (rows, moves), (wrows, wmoves) = got, want
+    worst = 0
+    for g, w in list(zip(rows, wrows)) + [(moves, wmoves)]:
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:10].tolist()
+            raise RuntimeError(f"env_step differs ({what}): {bad}")
+        worst = max(worst, int((g.long() - w.long()).abs().max()))
+    return worst
+
+
+def env_step_parity(dev, states):
+    """K4 against its plain version: the four cases at every batch of
+    ENV_BATCHES, then ENV_CHAIN_STEPS chained Philox steps from fresh
+    boards."""
+    from dream_go_torch.go import engine
+    from dream_go_torch.go.boards import env_step_cases
+    from dream_go_torch.ops import env_step as E
+    from dream_go_torch.ops import layout
+
+    t0 = time.monotonic()
+    rows = [t.contiguous() for t in layout.pack_states(states)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst, counts = 0, {}
+    for b in ENV_BATCHES:
+        sub = states.index(torch.arange(b, device=dev))
+        args = [t[:b].contiguous() for t in rows]
+        idx = torch.arange(b, device=dev)
+        cases = env_step_cases(sub, gen, ko=(idx % 16) == 3,
+                               pass_slots=(idx % 16) == 9)
+        for name, w, bits in cases:
+            got = E.env_step(*args, w, 1234 + b, bits)
+            torch.cuda.synchronize()
+            want = E.env_step_plain(*args, w, 1234 + b, bits)
+            worst = max(worst, env_compare(f"{name}, B={b}", got, want))
+            moves = got[1]
+            counts[name] = counts.get(name, 0) + int((moves < 361).sum())
+            if name == "one-hot":
+                # the one-hot point where it is legal, else a pass; the
+                # ko boards' super-ko point is not legal
+                pick = w.argmax(1)
+                legal = engine.legal_mask(sub)[idx, pick] & (w.sum(1) > 0)
+                ko = (idx % 16) == 3
+                check(not bool(legal[ko].any()),
+                      "a super-ko point is legal")
+                check(torch.equal(moves, torch.where(legal, pick, 361)
+                                  .to(torch.int32)),
+                      f"one-hot moves wrong at B={b}")
+            if name == "zero":
+                check(bool((moves == 361).all()), "zero weights moved")
+    chain = [t.contiguous() for t in layout.pack_states(
+        engine.new_states(ENV_CHAIN_BATCH, device=dev))]
+    w = torch.ones(ENV_CHAIN_BATCH, 361, device=dev)
+    for step in range(ENV_CHAIN_STEPS):
+        got = E.env_step(*chain, w, step)
+        want = E.env_step_plain(*chain, w, step)
+        worst = max(worst, env_compare(f"chained step {step}", got, want))
+        chain = list(got[0])
+    torch.cuda.synchronize()
+    placed = chain[4][:, 0, 1]
+    phase("parity", t0, f"env_step bit-exact vs plain at B="
+          f"{list(ENV_BATCHES)}: given bits, philox, one-hot (pass slot "
+          f"and super-ko point pass), zero weights (all pass); placements "
+          f"{counts}; {ENV_CHAIN_STEPS} chained steps at "
+          f"B={ENV_CHAIN_BATCH} (stones placed {int(placed.min())}.."
+          f"{int(placed.max())}) (max abs err {worst})")
+    return float(worst)
+
+
 def parity_phase(dev):
     states, actions = random_boards(max(PARITY_BATCHES), dev, seed=1)
+    env_states = env_boards(dev)
     errs = {"leaf_step": leaf_step_parity(dev, states, actions),
             "ladder_planes": ladder_parity(dev, states),
-            "board_features_raw": libs_after_parity(dev, states)}
-    return errs, states, actions
+            "board_features_raw": libs_after_parity(dev, states),
+            "env_step": env_step_parity(dev, env_states)}
+    return errs, states, actions, env_states
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +507,7 @@ def reference_phase(dev):
     these 12-move games comes near those bounds, so the two agree, and the
     bound tests (tests/test_torch_ladder.py) hold the difference."""
     from dream_go_torch.config import SearchConfig, SelfPlayConfig
+    from dream_go_torch.ops import env_step as E
     from dream_go_torch.ops import ladder_kernel as LK
     from dream_go_torch.ops import libs_after as LA
     from dream_go_torch.selfplay.search_play import \
@@ -418,7 +520,8 @@ def reference_phase(dev):
                                   ladders_exact=True), LK),
         ("planes on, unfused, feature kernel",
          dict(fused=False, feature_kernel=True, ladder_features=True,
-              ladders_exact=True), LA)]
+              ladders_exact=True), LA),
+        ("unfused, step kernel", dict(fused=False, step_kernel=True), E)]
     for name, kw, kernel in variants:
         cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=12,
                              temperature_moves=0)
@@ -466,26 +569,33 @@ def check_sgf(line: str, rollouts: int = ROLLOUTS) -> int:
 
 
 def kernel_modules():
-    from dream_go_torch.ops import ladder_kernel, leaf_step, libs_after
+    from dream_go_torch.ops import env_step, ladder_kernel, leaf_step, \
+        libs_after
 
     return {"leaf_step": leaf_step, "ladder_planes": ladder_kernel,
-            "board_features_raw": libs_after}
+            "board_features_raw": libs_after, "env_step": env_step}
 
 
-def drive(name, run, games, rollouts, expect):
-    """Run one self-play path with every launch count set to 0 just
-    before and read just after; ``expect`` names the kernels the path
-    must launch."""
+def counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before and
+    read just after: ``(result, launches, seconds)``."""
     mods = kernel_modules()
-    stats = {}
     torch.cuda.synchronize()
     for m in mods.values():
         m.launches = 0
     t0 = time.monotonic()
-    lines = run(stats)
+    out = run()
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {k: m.launches for k, m in mods.items()}
+    return out, {k: m.launches for k, m in mods.items()}, \
+        time.monotonic() - t0
+
+
+def drive(name, run, games, rollouts, expect):
+    """Run one self-play path with the launch counts zeroed before and
+    read after; ``expect`` names the kernels the path must launch."""
+    stats = {}
+    t0 = time.monotonic()
+    lines, launches, wall = counted(lambda: run(stats))
     check(len(lines) == games, f"{name}: {len(lines)} games, not {games}")
     moves = sum(check_sgf(g, rollouts) for g in lines)
     events = stats["move_events"]
@@ -544,9 +654,57 @@ def selfplay_phase(dev):
             device=dev),
         UNF_GAMES, UNF_ROLLOUTS, ["board_features_raw", "ladder_planes"])
     check(launches_unf["leaf_step"] == 0, "the unfused path ran leaf_step")
+
+    step = cli_args(STEP_MOVES, "--no-fused")
+    predictor = cli.load_predictor(step, dev)
+    scfg = SearchConfig(num_rollout=STEP_ROLLOUTS, fused=False,
+                        step_kernel=True).resolve_auto(dev)
+    cfg = SelfPlayConfig(num_games=STEP_GAMES, num_rollout=STEP_ROLLOUTS,
+                         max_moves=STEP_MOVES)
+    launches_step, _ = drive(
+        "selfplay C (unfused, step kernel)",
+        lambda st: search_self_play_continuous(
+            predictor, cfg, scfg, seed=0, batch=STEP_GAMES, stats=st,
+            device=dev),
+        STEP_GAMES, STEP_ROLLOUTS, ["env_step"])
+    check(launches_step["leaf_step"] == 0,
+          "the step-kernel path ran leaf_step")
     return {"leaf_step": launches_on["leaf_step"],
             "ladder_planes": launches_on["ladder_planes"],
             "board_features_raw": launches_unf["board_features_raw"]}
+
+
+# ---------------------------------------------------------------------------
+# 5b. the benchmark entry
+
+
+def bench_phase():
+    """``dream_go_torch.bench.main`` in this process, launch counts zeroed
+    before and read after; its JSON line must carry every key with a
+    finite value, and the env stage must have run on the kernel."""
+    import contextlib
+    import io
+    import math
+
+    from dream_go_torch import bench
+
+    t0 = time.monotonic()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, launches, wall = counted(lambda: bench.main(BENCH_ARGS))
+    check(rc == 0, f"bench exited {rc}")
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    check(not missing, f"bench JSON line lacks {missing}: {line}")
+    for k in BENCH_KEYS:
+        if k not in ("metric", "unit", "selfplay_rate_mode"):
+            check(isinstance(line[k], (int, float)) and math.isfinite(line[k])
+                  and line[k] > 0, f"bench {k} = {line[k]!r}")
+    check(launches["env_step"] >= 151 and launches["leaf_step"] > 0,
+          f"bench launches {launches}")
+    log(f"  bench JSON ({' '.join(BENCH_ARGS)}): {json.dumps(line)}")
+    phase("bench", t0, f"wall {wall:.1f} s, launches {launches}")
+    return line, launches
 
 
 # ---------------------------------------------------------------------------
@@ -704,6 +862,52 @@ def libs_after_bound(sub) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def env_step_bound(sub, with_bits: bool = False) -> tuple[float, str]:
+    """Least time for one env_step launch on these boards: bytes (each
+    board's six rows read and written, its weights, and its words when
+    given, read, its move written; the zobrist table once) over HBM rate,
+    or its operations (~100 a point for the neighbours, liberties,
+    candidate hash, random word, Gumbel score, argmax and the move; 3 per
+    valid ring entry per pseudo-legal point) over the scalar issue rate."""
+    from dream_go_torch.go import engine
+
+    b = sub.batch
+    rows = 4 * (384 + 384 + 2 * 384 + 2 * 128 + 8 + 8)
+    nbytes = b * (2 * rows + 4 * 361 * (2 if with_bits else 1) + 4) \
+        + 4 * 4 * 384
+    ring = torch.clamp(sub.placed_count, max=64).float()
+    pseudo = engine.pseudo_legal_mask(sub).sum(1).float()
+    ops = b * 384 * 100 + float((pseudo * ring * 3).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def env_step_timing(env_states):
+    """K4 in the bench's mode (uniform weights, Philox words) at B=256 and
+    at the bench's B=4096; returns the B=4096 row and logs both."""
+    from dream_go_torch.ops import env_step as E
+    from dream_go_torch.ops import layout
+
+    rows_all = [t.contiguous() for t in layout.pack_states(env_states)]
+    res = {}
+    for b in (TIMING_BATCH, max(ENV_BATCHES)):
+        rows = [t[:b].contiguous() for t in rows_all]
+        w = torch.ones(b, 361, device=rows[0].device)
+        step = lambda: E.env_step(*rows, w, 7)
+        res[b] = dict(
+            ms=graph_ms(step), eager_ms=events_ms(step, 50),
+            plain_ms=events_ms(lambda: E.env_step_plain(*rows, w, 7), 5),
+            bound=env_step_bound(env_states.index(
+                torch.arange(b, device=rows[0].device))))
+        v = res[b]
+        log(f"  env_step B={b}: kernel {v['ms'] * 1e3:.2f} us (eager call "
+            f"{v['eager_ms'] * 1e3:.2f} us), bound "
+            f"{v['bound'][0] * 1e3:.2f} us ({v['bound'][1]}), plain "
+            f"{v['plain_ms'] * 1e3:.1f} us")
+    return res[max(ENV_BATCHES)]
+
+
 def events_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -728,7 +932,7 @@ def graph_ms(fn, reps=50):
     return events_ms(graph.replay, 5) / reps
 
 
-def timing_phase(states, actions):
+def timing_phase(states, actions, env_states):
     from dream_go_torch.ops import ladder_kernel as LK
     from dream_go_torch.ops import layout
     from dream_go_torch.ops import leaf_step as L
@@ -766,12 +970,13 @@ def timing_phase(states, actions):
         plain_ms=events_ms(lambda: LA.features_raw_plain(args[0], args[1]),
                            10),
         bound=libs_after_bound(sub))
+    out["env_step"] = env_step_timing(env_states)
     log(f"  ladder_planes serial chain: {rung_ms * 1e3:.3f} us a rung "
         f"(staircase, {stair_chain} rungs, B=1); at B={b} the longest chase "
         f"is {longest} rungs ({longest * rung_ms * 1e3:.2f} us) and the "
         f"longest warp chain {chain} rungs ({chain * rung_ms * 1e3:.2f} us) "
         f"of {rungs} rungs in all")
-    phase("timing", t0, f"B={b}: " + "; ".join(
+    phase("timing", t0, f"B={b} (env_step B={max(ENV_BATCHES)}): " + "; ".join(
         f"{k} kernel {v['ms'] * 1e3:.2f} us (eager call "
         f"{v['eager_ms'] * 1e3:.2f} us), bound {v['bound'][0] * 1e3:.2f} us "
         f"({v['bound'][1]}), plain {v['plain_ms'] * 1e3:.1f} us"
@@ -786,6 +991,8 @@ SOURCES = {
                       "dream_go_tpu/ops/ladder_kernel.py:518"),
     "board_features_raw": ("dream_go_torch/csrc/libs_after.cu",
                            "dream_go_tpu/ops/libs_after.py:176"),
+    "env_step": ("dream_go_torch/csrc/env_step.cu",
+                 "dream_go_tpu/ops/env_step.py:355"),
 }
 
 
@@ -794,11 +1001,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     build_phase()
-    errs, states, actions = parity_phase(dev)
+    errs, states, actions, env_states = parity_phase(dev)
     reference_phase(dev)
     launches = selfplay_phase(dev)
+    _, bench_launches = bench_phase()
+    launches["env_step"] = bench_launches["env_step"]
     sanity_phase(dev)
-    times = timing_phase(states, actions)
+    times = timing_phase(states, actions, env_states)
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1], "launches": launches[name],

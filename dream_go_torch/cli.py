@@ -1,12 +1,20 @@
-"""Command-line front end of the port: continuous full-search self-play.
+"""Command-line front end of the port: self-play and the benchmark.
 
-    python -m dream_go_torch.cli --self-play N --continuous \\
+    python -m dream_go_torch.cli --self-play N [--continuous] \\
         --num-rollout R --num-games B [--max-moves M] [--seed S] \\
         [--weights dream_go.json] [--device cuda|cpu] \\
         [--ladder-features | --no-ladder-features]
+    python -m dream_go_torch.cli --policy-play N [...]
+    python -m dream_go_torch.cli --bench [--device cuda|cpu] [bench flags]
 
-writes one SGF line per finished game to stdout, as
-`dream_go_tpu/cli.py:230-253` does.  Without ``--weights`` the net is a
+Self-play writes one SGF line per finished game to stdout, as
+`dream_go_tpu/cli.py:230-283` does: ``--continuous`` keeps a batch of
+``--num-games`` live games and refills finished slots; without it the
+games are played in lockstep batches of ``--num-games``, each to its last
+game's end; ``--policy-play N`` (or ``--num-rollout 1``) samples each move
+from the policy head without a search.  ``--bench`` runs
+:mod:`dream_go_torch.bench`, handing it ``--device`` and every argument
+this parser does not know (``--full``, ``--no-selfplay``, ...).  Without ``--weights`` the net is a
 seeded random tower at the ``ModelConfig`` width (128 x 9 unless
 ``--num-channels``/``--num-blocks`` say otherwise).  Ladder planes 30/31
 follow the loaded net's input contract (its ``ladder_features:0`` tensor;
@@ -29,8 +37,13 @@ from .config import ModelConfig, SearchConfig, SelfPlayConfig
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dream_go_torch")
-    parser.add_argument("--self-play", type=int, metavar="N",
-                        help="generate N self-play games")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--self-play", type=int, metavar="N",
+                      help="generate N self-play games")
+    mode.add_argument("--policy-play", type=int, metavar="N",
+                      help="generate N policy-only games")
+    mode.add_argument("--bench", action="store_true",
+                      help="run the benchmark (dream_go_torch.bench)")
     parser.add_argument("--continuous", action="store_true",
                         help="continuous batching: finished games are "
                              "replaced by fresh ones; --num-games is the "
@@ -96,29 +109,71 @@ def search_config(args, device) -> SearchConfig:
     return cfg.resolve_auto(device)
 
 
+def _selfplay_config(args, num_games: int) -> SelfPlayConfig:
+    extra = {} if args.max_moves is None else {"max_moves": args.max_moves}
+    return SelfPlayConfig(num_games=num_games, num_rollout=args.num_rollout,
+                          komi=args.komi, **extra)
+
+
 def self_play(args, stats: dict | None = None) -> list[str]:
     """Run ``--self-play N --continuous`` and return the SGF lines."""
     from .selfplay.search_play import search_self_play_continuous
 
     device = torch.device(args.device)
     predictor = load_predictor(args, device)
-    extra = {} if args.max_moves is None else {"max_moves": args.max_moves}
-    cfg = SelfPlayConfig(num_games=args.self_play,
-                         num_rollout=args.num_rollout, komi=args.komi,
-                         **extra)
     return search_self_play_continuous(
-        predictor, cfg, search_config(args, device), seed=args.seed,
+        predictor, _selfplay_config(args, args.self_play),
+        search_config(args, device), seed=args.seed,
         batch=min(args.self_play, args.num_games), stats=stats,
         device=device)
 
 
+def batched_play(args):
+    """``--self-play N`` without ``--continuous`` or ``--policy-play N``:
+    lockstep batches of ``--num-games``; yields SGF lines batch by batch
+    and a row of dots per batch on stderr."""
+    from .selfplay.policy import PolicyPlayer, policy_self_play
+    from .selfplay.search_play import search_self_play
+
+    device = torch.device(args.device)
+    predictor = load_predictor(args, device)
+    total = args.self_play or args.policy_play
+    policy = bool(args.policy_play) or args.num_rollout <= 1
+    done = 0
+    while done < total:
+        n = min(args.num_games, total - done)
+        cfg = _selfplay_config(args, n)
+        if policy:
+            games = policy_self_play(
+                PolicyPlayer(predictor, ladder_features=args.ladder_features),
+                cfg, seed=args.seed + done, device=device)
+        else:
+            games = search_self_play(
+                predictor, cfg, search_config(args, device),
+                seed=args.seed + done, device=device)
+        yield from games
+        done += n
+        print("." * n, file=sys.stderr, flush=True)
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if not (args.self_play and args.continuous and args.num_rollout > 1):
-        print("dream_go_torch: only --self-play N --continuous with "
-              "--num-rollout > 1 is ported so far", file=sys.stderr)
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if args.bench:
+        from . import bench
+
+        return bench.main(["--device", args.device] + rest)
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.self_play and args.continuous and args.num_rollout > 1:
+        lines = self_play(args)
+    elif args.self_play or args.policy_play:
+        lines = batched_play(args)
+    else:
+        print("dream_go_torch: give --self-play N, --policy-play N or "
+              "--bench (GTP serving is not ported yet)", file=sys.stderr)
         return 2
-    for line in self_play(args):
+    for line in lines:
         print(line, flush=True)
     return 0
 

@@ -2,9 +2,9 @@
 
 Port of `dream_go_tpu/config.py` (``Schedule``, ``SearchConfig``,
 ``SelfPlayConfig``, ``ModelConfig``), with the fields the port's code
-reads; the others (ex-it, the env-step option, ...) come with the code
-that reads them.  Schedules are piecewise-linear
-tables over the total visit count, written ``"100=1.87,200=1.49"``;
+reads; the others (ex-it, ...) come with the code that reads them.
+Schedules are piecewise-linear tables over the total visit count, written
+``"100=1.87,200=1.49"``;
 :meth:`Schedule.at` evaluates one on a tensor with the same arithmetic as
 ``jnp.interp``.
 """
@@ -101,6 +101,8 @@ class SearchConfig:
     #                                    the leaves
     feature_kernel: bool = False       # liberties-after feature kernel for
     #                                    root evals and unfused leaves
+    step_kernel: bool = False          # unfused leaves step through the
+    #                                    env_step kernel (one-hot weights)
 
     def resolve_auto(self, device) -> "SearchConfig":
         """Fill the ``None`` (auto) knobs for ``device``: the fused leaf

@@ -1,4 +1,5 @@
-"""Boards from raw stone lists, and the ladder stress boards.
+"""Boards from raw stone lists, the ladder stress boards, a scripted ko
+and the env-step kernel's parity cases.
 
 :func:`from_stones` builds a GoState from 361-entry stone lists (0 empty,
 1 black, 2 white), its chain ids by flood fill.  :func:`ladder_stress`
@@ -6,15 +7,25 @@ gives the boards that push the ladder readers to their bounds, rebuilt
 from the JAX package's tests (`tests/test_ladder_stress.py`
 ``staircase_board``, `tests/test_ladder_bounds.py` swarms); the card
 tests and `chip_smoke.py` hold the ladder kernel to its plain version on
-them.
+them.  ``KO_MOVES``, :func:`ko_captured` and :func:`env_step_cases` give
+both of them the same ko boards and env-step inputs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .engine import BLACK, GoState, new_states
+from .engine import BLACK, GoState, legal_mask, new_states, step
 from .topology import NN
+
+_pt = lambda x, y: 19 * y + x
+#: a scripted ko: these moves from an empty board, then black's capture at
+#: KO_ACTION (2,1); white's recapture at KO_RECAPTURE (1,1) is then a
+#: super-ko
+KO_MOVES = [_pt(1, 0), _pt(2, 0), _pt(0, 1), _pt(3, 1), _pt(1, 2),
+            _pt(2, 2), _pt(10, 10), _pt(1, 1)]
+KO_ACTION = _pt(2, 1)
+KO_RECAPTURE = _pt(1, 1)
 
 #: the staircase's capture start: black at (3, 2) ladders the white stone
 #: at (2, 2) across the board in 31 rungs (62 with the alternates read)
@@ -83,3 +94,38 @@ def ladder_stress() -> list[list[int]]:
             for rc in ((r, c - 1), (r, c + 1), (r - 1, c), (r + 2, c)):
                 escs[pt(*rc)] = 2
     return [stair, broken, caps, escs]
+
+
+def ko_captured(states: GoState, ko: torch.Tensor) -> GoState:
+    """``states`` with KO_ACTION played on the boards of the bool[B] mask
+    ``ko`` (boards that hold KO_MOVES), whose recapture is then a
+    super-ko."""
+    act = torch.full((states.batch,), KO_ACTION, dtype=torch.int32,
+                     device=states.stones.device)
+    return step(states, act).select(ko, states)
+
+
+def env_step_cases(states: GoState, gen: torch.Generator, ko: torch.Tensor,
+                   pass_slots: torch.Tensor) -> list:
+    """``(name, weights, rng_bits)`` of the env-step kernel's four parity
+    cases: uniform weights with given words; uniform weights with the
+    kernel's Philox words; one-hot weights on a legal point, on the
+    super-ko recapture of the ``ko`` boards (after :func:`ko_captured`)
+    and on no point (the pass slot) on the ``pass_slots`` boards; zero
+    weights."""
+    b, dev = states.batch, states.stones.device
+    idx = torch.arange(b, device=dev)
+    bits = torch.randint(-2**31, 2**31, (b, 361), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    uniform = torch.ones(b, 361, device=dev)
+    legal = legal_mask(states)[:, :361].float()
+    pick = torch.multinomial(
+        torch.where(legal.any(1, keepdim=True), legal, 1.0), 1,
+        generator=gen)[:, 0]
+    pick = torch.where(ko, KO_RECAPTURE, pick)
+    onehot = torch.zeros(b, 361, device=dev)
+    onehot[idx, pick] = 1.0
+    onehot[pass_slots] = 0.0
+    return [("given bits", uniform, bits), ("philox", uniform, None),
+            ("one-hot", onehot, None),
+            ("zero", torch.zeros(b, 361, device=dev), None)]

@@ -5,13 +5,15 @@ the to-move win rate in [0, 1] and ``policy`` a softmax distribution.
 ``predictor(feats)`` takes the JAX package's NHWC layout ``[B, 19, 19,
 32]``; ``predictor.planes(x)`` takes plane-major ``[B, 32, 19, 19]``,
 which is what the fused leaf kernel writes, so the search feeds the tower
-without a transpose.
+without a transpose.  :func:`symmetrize` averages a predictor over the
+eight board symmetries.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..go.topology import SYM_POLICY, SYM_POLICY_INV
 from ..models.tower import Tower
 
 
@@ -77,3 +79,24 @@ def random_predictor(noise: float = 0.0,
         return torch.full((b,), 0.5, device=feats.device), policy
 
     return Predictor(predict)
+
+
+def symmetrize(predict: Predictor) -> Predictor:
+    """8-symmetry averaged evaluation (`lib.rs:83-130` full_forward): each
+    D8 transform of the NHWC features, one predictor call on the 8B batch,
+    the policies mapped back through the inverse transforms, then value
+    and policy averaged over the eight."""
+    def predict_sym(feats):
+        b, c = feats.shape[0], feats.shape[-1]
+        sym = torch.as_tensor(SYM_POLICY[:, :361], dtype=torch.long,
+                              device=feats.device)
+        inv = torch.as_tensor(SYM_POLICY_INV, dtype=torch.long,
+                              device=feats.device)
+        flat = feats.reshape(b, 361, c)
+        stacked = flat[:, sym].transpose(0, 1).reshape(8 * b, 19, 19, c)
+        value, policy = predict(stacked)
+        policy = policy.reshape(8, b, 362).gather(
+            2, inv[:, None, :].expand(8, b, 362))
+        return value.reshape(8, b).mean(0), policy.mean(0)
+
+    return Predictor(predict_sym)

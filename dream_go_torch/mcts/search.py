@@ -4,7 +4,8 @@ Port of `dream_go_tpu/mcts/search.py`.  One fixed-capacity array tree per
 game; every simulation selects a leaf in each game's tree, applies the
 action and featurizes the leaf (on the fused path, one ``leaf_step``
 kernel launch for the whole batch, plus one ladder-kernel launch when the
-net takes planes 30/31), runs one batched network evaluation, and
+net takes planes 30/31; unfused with ``step_kernel``, one ``env_step``
+launch with a one-hot weight), runs one batched network evaluation, and
 inserts/backs up.  The tree layout, formulas and reference behaviours
 are those of the JAX package:
 
@@ -38,6 +39,7 @@ from ..go import engine, features, ladder
 from ..go.engine import GoState
 from ..go.options import scoring_mask, standard_mask
 from ..ops import layout
+from ..ops.env_step import env_step_states
 from ..ops.leaf_step import leaf_step
 from ..utils.lcb import normal_lcb
 from ..utils.numerics import fma as _fma
@@ -534,7 +536,12 @@ def run_search(trees: Tree, predictor, cfg: SearchConfig, num_sims: int,
                     scoring_mask(unpack_rows(leaf_states)), candidate)
             value, policy = predictor.planes(planes)
         else:
-            leaf_states = engine.step(parent, action)
+            if cfg.step_kernel:
+                onehot = (torch.arange(engine.PASS, device=action.device)
+                          [None, :] == action[:, None]).to(torch.float32)
+                leaf_states, _ = env_step_states(parent, onehot, 0)
+            else:
+                leaf_states = engine.step(parent, action)
             value, policy = predictor(_net_input(leaf_states, cfg))
         en = None if budget is None else (start + i) < budget
         _insert_backup_flat(

@@ -16,11 +16,14 @@ The point axis is padded from 361 to ``NP = 384``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..go.engine import GoState, new_states
 from ..go.topology import NN
+from ..go.zobrist import Z_I32
 
 NP = 384   # padded point axis
 RING = 64  # super-ko history entries
@@ -36,6 +39,19 @@ MASK = {
     -N: VALID & (_IDX + N < NN),
 }
 SHIFTS = (1, -1, N, -N)
+#: per-board shape of each of the six arrays, as the kernels take them
+ROW_SHAPES = {"stones": (1, NP), "cid": (1, NP), "cxp": (2, NP),
+              "hist": (2, 128), "meta": (1, 8), "hashw": (1, 8)}
+
+
+@functools.lru_cache(maxsize=None)
+def zobrist_rows(device: str) -> torch.Tensor:
+    """i32[4, 384] zobrist table of the kernels: black word 0, black word
+    1, white word 0, white word 1 (zero on padding lanes)."""
+    z = np.zeros((4, NP), np.int32)
+    z[0, :NN], z[1, :NN] = Z_I32[0, :, 0], Z_I32[0, :, 1]
+    z[2, :NN], z[3, :NN] = Z_I32[1, :, 0], Z_I32[1, :, 1]
+    return torch.as_tensor(z, device=torch.device(device))
 
 
 def _pad_points(x: torch.Tensor, fill=0) -> torch.Tensor:
@@ -61,6 +77,25 @@ def pack_states(states: GoState):
     hashw = torch.cat([states.hash, states.hash.new_zeros(b, 6)], 1)
     return (stones[:, None, :], cid[:, None, :], cxp, hist.contiguous(),
             meta, hashw[:, None, :])
+
+
+def repack_rows(states: GoState, stones, cid, cxp, hist, meta, hashw):
+    """The six kernel arrays of ``states``, written into copies of the
+    given arrays: padding lanes, ring columns 64..127, meta[7] and hash
+    words 2..7 pass through as a kernel passes them, and the per-point
+    chain aggregate is taken as the state holds it (not re-masked)."""
+    stones, cid, cxp = stones.clone(), cid.clone(), cxp.clone()
+    hist, meta, hashw = hist.clone(), meta.clone(), hashw.clone()
+    stones[:, 0, :NN] = states.stones.to(torch.int32)
+    cid[:, 0, :NN] = states.chain_id
+    cxp[:, :, :NN] = states.chain_xor.transpose(1, 2)
+    hist[:, :, :RING] = states.hash_hist.transpose(1, 2)
+    meta[:, 0, :7] = torch.stack([
+        states.to_move.to(torch.int32), states.placed_count,
+        states.move_count, states.pass_count, states.done.to(torch.int32),
+        states.last_two[:, 0], states.last_two[:, 1]], dim=1)
+    hashw[:, 0, :2] = states.hash
+    return stones, cid, cxp, hist, meta, hashw
 
 
 def board_rows(states: GoState):

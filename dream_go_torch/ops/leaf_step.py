@@ -28,16 +28,14 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..go import engine
 from ..go.features import features_v1
 from ..go.options import standard_mask
 from ..go.topology import NN
-from ..go.zobrist import Z_I32
 from . import build, layout
-from .layout import NP, RING
+from .layout import NP
 
 #: kernel launches made by :func:`leaf_step` (CPU calls do not count)
 launches = 0
@@ -50,34 +48,11 @@ def leaf_step_plain(stones, cid, cxp, hist, meta, hashw, action, komi):
     state = layout.unpack_states(template, stones, cid, cxp, hist, meta,
                                  hashw)
     new = engine.step(state, action)
-    # write back into copies of the inputs: padding lanes, ring columns
-    # 64..127, meta[7] and hash words 2..7 pass through as in the kernel,
-    # and the per-point chain aggregate is not re-masked
-    stones2, cid2, cxp2 = stones.clone(), cid.clone(), cxp.clone()
-    hist2, meta2, hash2 = hist.clone(), meta.clone(), hashw.clone()
-    stones2[:, 0, :NN] = new.stones.to(torch.int32)
-    cid2[:, 0, :NN] = new.chain_id
-    cxp2[:, :, :NN] = new.chain_xor.transpose(1, 2)
-    hist2[:, :, :RING] = new.hash_hist.transpose(1, 2)
-    meta2[:, 0, :7] = torch.stack([
-        new.to_move.to(torch.int32), new.placed_count, new.move_count,
-        new.pass_count, new.done.to(torch.int32), new.last_two[:, 0],
-        new.last_two[:, 1]], dim=1)
-    hash2[:, 0, :2] = new.hash
+    rows = layout.repack_rows(new, stones, cid, cxp, hist, meta, hashw)
     feats = torch.zeros(b, 32, NP, dtype=torch.float32, device=stones.device)
     feats[:, :, :NN] = features_v1(new).reshape(b, NN, 32).transpose(1, 2)
     cand = standard_mask(new)[:, :NN]
-    return (stones2, cid2, cxp2, hist2, meta2, hash2), feats, cand
-
-
-@functools.lru_cache(maxsize=None)
-def _zobrist(device: str) -> torch.Tensor:
-    """i32[4, 384]: black word 0, black word 1, white word 0, white word 1
-    (zero on padding lanes)."""
-    z = np.zeros((4, NP), np.int32)
-    z[0, :NN], z[1, :NN] = Z_I32[0, :, 0], Z_I32[0, :, 1]
-    z[2, :NN], z[3, :NN] = Z_I32[1, :, 0], Z_I32[1, :, 1]
-    return torch.as_tensor(z, device=torch.device(device))
+    return rows, feats, cand
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,10 +61,6 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-_SHAPES = {"stones": (1, NP), "cid": (1, NP), "cxp": (2, NP),
-           "hist": (2, 128), "meta": (1, 8), "hashw": (1, 8)}
 
 
 def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
@@ -108,7 +79,7 @@ def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
                  hashw=hashw)
     for name, t in state.items():
         build.check_arg("leaf_step", name, t, torch.int32,
-                        (b,) + _SHAPES[name], dev)
+                        (b,) + layout.ROW_SHAPES[name], dev)
     build.check_arg("leaf_step", "action", action, torch.int32, (b,), dev)
     build.check_arg("leaf_step", "komi", komi, torch.float32, (b,), dev)
     outs = [torch.empty_like(t) for t in state.values()]
@@ -116,7 +87,7 @@ def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
     cand = torch.empty(b, NN, dtype=torch.bool, device=dev)
     if b == 0:
         return tuple(outs), feats, cand
-    zob = _zobrist(str(dev))
+    zob = layout.zobrist_rows(str(dev))
     ptrs = [t.data_ptr() for t in (*state.values(), action, komi, zob,
                                    *outs, feats, cand)]
     build.launch("leaf_step", _kernel(), dev, *ptrs, b)

@@ -1,13 +1,35 @@
-"""Helpers shared with policy-only self-play (`dream_go_tpu/selfplay/
-policy.py`): the random komi draw and the finished-board territory."""
+"""Policy-only self-play: the reference's ``--num-rollout 1`` path.
+
+Port of `dream_go_tpu/selfplay/policy.py` (``PolicyPlayer``,
+``_build_move_fn``, ``policy_self_play``, ``random_komi``,
+``_final_territory``).  All games advance in lockstep, one network
+evaluation per move for the whole batch.  Reference semantics kept:
+
+- passing is forbidden until the board is scorable: before that the
+  ScoringSearch candidate mask applies (`self_play.rs:434-436`);
+- the move is drawn with percentile-cutoff temperature sampling over the
+  masked policy (`self_play.rs:381-386`); if nothing survives, pass;
+- games end on two consecutive passes or after ``max_moves`` moves;
+- per-move records carry the masked policy (``P[...]``) and the value.
+
+The JAX package runs chunks of moves as one ``lax.scan`` program so that
+a remote device is fetched once per chunk; here a host loop plays the
+moves and fetches each chunk's records once.  Random draws come from one
+``torch.Generator`` on the device, seeded by ``seed``.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..config import SelfPlayConfig
 from ..go import benson as bn
+from ..go import engine, features
 from ..go.engine import GoState
+from ..go.options import scoring_mask
+from ..mcts.choose import choose
+from .records import Played, game_result_sgf
 
 
 def random_komi(n: int, seed: int = 0) -> np.ndarray:
@@ -27,3 +49,86 @@ def _final_territory(states: GoState) -> torch.Tensor:
     """int8[B, 361] EMPTY/BLACK/WHITE ownership of the finished boards."""
     return bn.stone_status(states.stones, states.chain_id, states.stones,
                            states.chain_id)[1]
+
+
+class PolicyPlayer:
+    """A predictor with its sampling settings."""
+
+    def __init__(self, predictor, *, temperature: float = 0.7,
+                 cutoff_percentile: float = 0.5,
+                 ladder_features: bool = False):
+        self.predict = predictor
+        self.temperature = temperature
+        self.cutoff_percentile = cutoff_percentile
+        self.ladder_features = ladder_features
+
+
+def _build_move_fn(player: PolicyPlayer):
+    """One lockstep move for the whole batch: ``move_fn(states, gen) ->
+    (new_states, move, value, masked policy normalised)``.  Planes 30/31,
+    when on, come from the exact reader on cuda and the greedy one on the
+    CPU (the auto choice of ``SearchConfig.resolve_auto``)."""
+
+    def move_fn(states: GoState, gen: torch.Generator):
+        exact = states.stones.device.type == "cuda"
+        feats = features.extract_batch(states, player.ladder_features,
+                                       False, exact)
+        value, policy = player.predict(feats)
+        mask = torch.where(bn.is_scorable(states)[:, None],
+                           engine.legal_mask(states), scoring_mask(states))
+        masked = torch.where(mask, policy, 0.0)
+        move = choose(gen, masked, player.cutoff_percentile,
+                      player.temperature)
+        move = torch.where(states.done, engine.PASS, move).to(torch.int32)
+        new_states = engine.step(states, move)
+        total = torch.clamp(masked.sum(-1, keepdim=True), min=1e-9)
+        return new_states, move, value, masked / total
+
+    return move_fn
+
+
+def policy_self_play(player: PolicyPlayer, cfg: SelfPlayConfig,
+                     seed: int = 0, device="cuda") -> list[str]:
+    """Play ``cfg.num_games`` games to completion; returns SGF lines."""
+    dev = torch.device(device)
+    states = engine.new_states(cfg.num_games, komi=cfg.komi,
+                               history_len=cfg.history_len, device=dev)
+    if cfg.random_komi:
+        states = states.replace(komi=torch.as_tensor(
+            random_komi(cfg.num_games, seed), device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    move_fn = _build_move_fn(player)
+    chunk = min(32, cfg.max_moves)
+
+    records = []  # (active[B], move[B], value[B], to_move[B], policy f16)
+    done_moves = 0
+    while done_moves < cfg.max_moves:
+        step = min(chunk, cfg.max_moves - done_moves)
+        recs = []
+        for _ in range(step):
+            active, to_move = ~states.done, states.to_move
+            states, move, value, policy = move_fn(states, gen)
+            recs.append((active, move, value, to_move,
+                         policy.to(torch.float16)))
+        cols = [torch.stack(c).cpu().numpy() for c in zip(*recs)]
+        records.extend(zip(*cols))
+        done_moves += step
+        if bool(states.done.all()):
+            break
+
+    territory = _final_territory(states).cpu().numpy()
+    komis = states.komi.cpu().numpy()
+    games = []
+    for g in range(cfg.num_games):
+        sgf_moves = []
+        for active, move, value, to_move, policy in records:
+            if not active[g]:
+                break
+            sgf_moves.append(Played(
+                to_move=int(to_move[g]), point=int(move[g]),
+                value=float(value[g]), num_rollout=1,
+                softmax=policy[g]).to_sgf())
+        games.append(game_result_sgf(
+            "".join(sgf_moves), komi=float(komis[g]),
+            territory=territory[g]))
+    return games

@@ -125,3 +125,47 @@ def det_predictor_torch():
         return value, k.to(torch.float32) / 4096.0
 
     return Predictor(predict)
+
+
+#: policy of the peaked predictor by rank: 2**-rank for the first 24 ranks
+#: (their float32 sums are exact in any order), 0 after
+_PEAK = np.asarray([2.0 ** -r if r < 24 else 0.0 for r in range(362)],
+                   np.float32)
+
+
+def peaked_predictor_jax():
+    """A deterministic predictor for policy play: a hash of the feature
+    bits ranks the 362 actions, and rank ``r`` gets ``2**-r``, so the best
+    legal action holds more than half of any masked policy's mass and the
+    0.5 percentile cutoff keeps it alone: the draw cannot differ between
+    random streams."""
+    w = jnp.asarray(_W)
+    peak = jnp.asarray(_PEAK)
+
+    def predict(feats):
+        bits = (feats > 0.5).astype(jnp.int32)
+        h = jnp.sum(bits * w, axis=(1, 2, 3))
+        a = jnp.arange(362, dtype=jnp.int32)
+        rank = (h[:, None] * 31 + a[None, :] * 17) % 362
+        value = ((h % 200) + 28).astype(jnp.float32) / 256.0
+        return value, peak[rank]
+
+    return predict
+
+
+def peaked_predictor_torch():
+    """:func:`peaked_predictor_jax` for the port."""
+    from dream_go_torch.mcts.predictor import Predictor
+
+    w = torch.from_numpy(_W)
+    peak = torch.from_numpy(_PEAK)
+
+    def predict(feats):
+        bits = (feats > 0.5).to(torch.int32)
+        h = (bits * w.to(feats.device)).sum(dim=(1, 2, 3))
+        a = torch.arange(362, dtype=torch.int32, device=feats.device)
+        rank = (h[:, None] * 31 + a[None, :] * 17) % 362
+        value = ((h % 200) + 28).to(torch.float32) / 256.0
+        return value, peak.to(feats.device)[rank.long()]
+
+    return Predictor(predict)

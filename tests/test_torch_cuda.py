@@ -12,14 +12,10 @@ import pytest
 import torch
 
 from dream_go_torch.go import engine
+from dream_go_torch.go.boards import (KO_ACTION, KO_MOVES, KO_RECAPTURE,
+                                      env_step_cases, ko_captured)
 from dream_go_torch.ops import layout
 from dream_go_torch.ops import leaf_step as L
-
-P = lambda x, y: 19 * y + x
-#: black captures at (2,1); white's recapture at (1,1) is a super-ko
-KO_MOVES = [P(1, 0), P(2, 0), P(0, 1), P(3, 1), P(1, 2), P(2, 2), P(10, 10),
-            P(1, 1)]
-KO_ACTION = P(2, 1)
 
 
 @pytest.fixture
@@ -69,7 +65,7 @@ def test_leaf_step_kernel_matches_plain(cuda_device, batch):
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2])
     if batch > 1:
-        assert float(got[1][0, 29, P(1, 1)]) == 1.0   # the ko
+        assert float(got[1][0, 29, KO_RECAPTURE]) == 1.0   # the ko
 
 
 @pytest.mark.cuda
@@ -170,3 +166,74 @@ def test_ladder_and_libs_after_reject_bad_inputs(cuda_device):
         LA.features_raw(st, cid.cpu())
     with pytest.raises(ValueError):
         LA.features_raw(st[:1], cid)
+
+
+# ---------------------------------------------------------------------------
+# the env-step kernel (K4)
+
+from dream_go_torch.ops import env_step as E  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 256, 1024])
+def test_env_step_kernel_matches_plain(cuda_device, batch):
+    states, _ = _boards(batch, cuda_device, seed=batch + 3)
+    # board 0 plays its ko capture: white's recapture is then a super-ko;
+    # board 2 has the pass slot
+    idx = torch.arange(batch, device=cuda_device)
+    states = ko_captured(states, idx == 0)
+    rows = [t.contiguous() for t in layout.pack_states(states)]
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    for name, w, bits in env_step_cases(states, gen, ko=idx == 0,
+                                        pass_slots=idx == 2):
+        before = E.launches
+        got, moves = E.env_step(*rows, w, 12345, bits)
+        torch.cuda.synchronize()
+        assert E.launches == before + 1
+        want, want_moves = E.env_step_plain(*rows, w, 12345, bits)
+        assert torch.equal(moves, want_moves), name
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), name
+        if name == "one-hot":
+            assert int(moves[0]) == 361        # the super-ko point passes
+        if name == "zero":
+            assert bool((moves == 361).all())
+
+
+@pytest.mark.cuda
+def test_env_step_kernel_chained_steps(cuda_device):
+    """200 Philox steps at B=256 from fresh boards, kernel and plain
+    compared after every step."""
+    states = engine.new_states(256, device=cuda_device)
+    rows = layout.pack_states(states)
+    w = torch.ones(256, 361, device=cuda_device)
+    for t in range(200):
+        got, moves = E.env_step(*rows, w, t)
+        want, want_moves = E.env_step_plain(*rows, w, t)
+        assert torch.equal(moves, want_moves), t
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), t
+        rows = got
+
+
+@pytest.mark.cuda
+def test_env_step_rejects_bad_inputs(cuda_device):
+    states, _ = _boards(2, cuda_device, seed=0)
+    rows = list(layout.pack_states(states))
+    w = torch.ones(2, 361, device=cuda_device)
+    with pytest.raises(TypeError):
+        E.env_step(*rows, w.double(), 0)
+    with pytest.raises(ValueError):
+        E.env_step(*rows, w.cpu(), 0)
+    with pytest.raises(ValueError):
+        E.env_step(*rows, torch.ones(2, 384, device=cuda_device), 0)
+    with pytest.raises(TypeError):
+        E.env_step(*rows, w, 0, torch.zeros(2, 361, dtype=torch.int64,
+                                            device=cuda_device))
+    bad = list(rows)
+    bad[3] = rows[3][:, :, :64].contiguous()
+    with pytest.raises(ValueError):
+        E.env_step(*bad, w, 0)
+    short = engine.new_states(2, history_len=32, device=cuda_device)
+    with pytest.raises(ValueError):
+        E.env_step_states(short, w, 0)

@@ -60,6 +60,27 @@ def test_search_matches_jax(fused):
                                   np.asarray(tj.states.stones[:, 0]))
 
 
+def test_step_kernel_search_matches_jax():
+    """Unfused leaves stepped through env_step (one-hot weights) against
+    the JAX search's engine step (its step-kernel path needs the TPU's
+    generator, which interpret mode on the CPU lacks; the JAX package's
+    own tests show the two steps agree): equal tree statistics, and equal
+    node states, chain_xor at stones only."""
+    js, tj = _jax_case()
+    tt = TS.search(B.to_torch(js), B.det_predictor_torch(),
+                   torch.Generator().manual_seed(0),
+                   TSC(dirichlet_noise=0.0, fused=False, step_kernel=True),
+                   SIMS)
+    _assert_trees_equal(tt, tj)
+    got = B.to_numpy(tt.states)
+    stones = np.asarray(tj.states.stones) != 0
+    for f in B.FIELDS:
+        want = np.asarray(getattr(tj.states, f))
+        if f == "chain_xor":
+            got[f], want = got[f][stones], want[stones]
+        np.testing.assert_array_equal(got[f], want, f)
+
+
 def test_choose_weights_match():
     rng = np.random.default_rng(0)
     items = rng.integers(0, 50, (5, 362)).astype(np.float32)

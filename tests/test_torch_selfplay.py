@@ -4,6 +4,7 @@ against the JAX package's, move for move."""
 import re
 
 import numpy as np
+import torch
 
 import _torch_bridge as B
 from dream_go_tpu.config import SearchConfig as JSC
@@ -11,7 +12,12 @@ from dream_go_tpu.config import SelfPlayConfig as JSP
 from dream_go_tpu.selfplay import records as JR
 from dream_go_tpu.selfplay import search_play as JPL
 from dream_go_tpu.utils import sgf
+from dream_go_tpu.mcts import predictor as JP
+from dream_go_tpu.selfplay import policy as JPO
 from dream_go_torch import cli
+from dream_go_torch.mcts import predictor as TP
+from dream_go_torch.selfplay import policy as TPO
+from dream_go_torch.utils import sgf as tsgf
 from dream_go_torch.config import SearchConfig as TSC
 from dream_go_torch.config import SelfPlayConfig as TSP
 from dream_go_torch.selfplay import records as TR
@@ -90,3 +96,87 @@ def test_cli_follows_the_sanity_net_contract():
     off = cli.build_parser().parse_args(argv + ["--no-ladder-features"])
     cli.load_predictor(off, "cpu")
     assert off.ladder_features is False
+
+
+def test_lockstep_self_play_matches_jax():
+    """The lockstep driver, batch 3 played to a 6-move cap, 8 rollouts,
+    greedy moves, fresh trees every move (the continuous test covers
+    reuse), unfused leaves on the CPU: equal SGF lines."""
+    kw = dict(num_games=3, num_rollout=8, max_moves=6, temperature_moves=0)
+    want = JPL.search_self_play(
+        B.det_predictor_jax(), JSP(**kw),
+        JSC(num_rollout=8, dirichlet_noise=0.0, adaptive=False), seed=0,
+        tree_reuse=False)
+    got = TPL.search_self_play(
+        B.det_predictor_torch(), TSP(**kw),
+        TSC(num_rollout=8, dirichlet_noise=0.0, fused=False, adaptive=False),
+        seed=0, tree_reuse=False, device="cpu")
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert _strip_date(g) == _strip_date(w)
+
+
+def test_policy_self_play_matches_jax():
+    """Policy play, 4 games to a 40-move cap, with the peaked predictor
+    (the percentile cutoff keeps one action, so the two packages' random
+    streams draw the same moves): equal SGF lines."""
+    cfg = dict(num_games=4, max_moves=40)
+    want = JPO.policy_self_play(
+        JPO.PolicyPlayer(B.peaked_predictor_jax()), JSP(**cfg), seed=3)
+    got = TPO.policy_self_play(
+        TPO.PolicyPlayer(B.peaked_predictor_torch()), TSP(**cfg), seed=3,
+        device="cpu")
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert _strip_date(g) == _strip_date(w)
+        assert len(tsgf.parse_line(g).moves) == 40
+
+
+def test_policy_stagger_matches_jax():
+    """Batch 4 staggered over a 30-move game length (slots advance 0, 7,
+    15 and 22 moves) with the peaked predictor: equal states."""
+    jst = JPL._policy_stagger(
+        B.peaked_predictor_jax(), JSP(max_moves=30), JSC(),
+        JPL.engine.new_states(4), seed=5)
+    tst = TPL._policy_stagger(
+        B.peaked_predictor_torch(), TSP(max_moves=30),
+        TSC().resolve_auto("cpu"),
+        TPL.engine.new_states(4, device="cpu"), seed=5)
+    B.assert_states_equal(tst, jst)
+    assert tst.move_count.tolist() == [0, 7, 15, 22]
+
+
+def test_symmetrize_matches_jax():
+    """The 8-symmetry average of the deterministic predictor on random
+    feature planes: equal values and policies (dyadic numbers: the means
+    are exact)."""
+    feats = (np.random.default_rng(2).random((3, 19, 19, 32)) < 0.3) \
+        .astype(np.float32)
+    wv, wp = JP.symmetrize(B.det_predictor_jax())(B.jnp.asarray(feats))
+    tv, tp = TP.symmetrize(B.det_predictor_torch())(torch.from_numpy(feats))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(wp))
+    # the transforms matter: one symmetry alone gives another policy
+    _, one = B.det_predictor_torch()(torch.from_numpy(feats))
+    assert not torch.equal(one, tp)
+
+
+def test_cli_policy_play_and_lockstep_self_play_on_cpu(capsys):
+    """``--policy-play N`` and ``--self-play N`` without ``--continuous``
+    write N SGF lines that the port's SGF reader parses back."""
+    small = ["--num-games", "2", "--max-moves", "5", "--device", "cpu",
+             "--num-channels", "8", "--num-blocks", "1"]
+    for argv, rollouts in ((["--policy-play", "3"], 1),
+                           (["--self-play", "3", "--num-rollout", "4"], 4),
+                           (["--self-play", "2", "--num-rollout", "1"], 1)):
+        assert cli.main(argv + small) == 0
+        lines = [l for l in capsys.readouterr().out.splitlines() if l]
+        assert len(lines) == int(argv[1])
+        for line in lines:
+            parsed = tsgf.parse_line(line)
+            assert parsed is not None and len(parsed.moves) == 5
+            for mv in parsed.moves:  # policy play writes no TV[]
+                if rollouts == 1:
+                    assert mv.num_rollout is None
+                else:
+                    assert 1 < mv.num_rollout <= rollouts
