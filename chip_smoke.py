@@ -6,15 +6,19 @@ Phases, in order, each printed with its seconds:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matmul and cuDNN;
-2. build: every CUDA kernel of the port, one nvcc per source, started
-   together;
+2. build: every CUDA kernel of the port, one nvcc per source, and the
+   ladder kernel's bounds-checked build (``-DDG_CHECK``), all started
+   together; each build's ptxas report (registers, shared memory, spills);
 3. parity: each kernel against its plain PyTorch version on the card, bit
    for bit.  Boards come from the port's engine (random legal play stopped
    between 0 and 250 moves, passes, finished games, a super-ko in the
    ring); the ladder kernel also reads the sanity-test ladder positions,
    the 48-capture and 12-escape swarms, the 31-rung staircase and a broken
-   one, and the staircase again with its rung budget and branch stack cut
-   below what the chase needs (both must lose the capture); the env-step
+   one, two boards on which a chase captures a third chain mid-ladder,
+   and the staircase again with its rung budget and branch stack cut
+   below what the chase needs (both must lose the capture); then its
+   bounds-checked build on the same B=1024 boards and cut bounds, which
+   must not trap; the env-step
    kernel at B = 1, 7, 256, 1024 and 4096 with given random words, its
    Philox words, one-hot weights (a pass slot and a super-ko point among
    them, which pass) and zero weights (all pass), then 200 chained steps
@@ -60,6 +64,7 @@ from __future__ import annotations
 
 import base64
 import concurrent.futures
+import heapq
 import json
 import re
 import subprocess
@@ -110,7 +115,8 @@ BF16_POLICY_KL = 4e-4
 #: at 16 operations a point (four neighbours' colour and liberties)
 LADDER_OPS_PER_RUNG = 2 * 4 * 4 + 4 * 4
 LADDER_OPS_PER_POINT = 16
-#: csrc/ladder_planes.cu deals a board's chases round-robin to 8 warps
+#: csrc/ladder_planes.cu runs a board's chases on 8 warps, each taking the
+#: next chase when it finishes one
 LADDER_WARPS = 8
 #: H100 SXM HBM rate and the non-tensor-core fp32/int32 issue rate
 #: (NVIDIA data sheet), for the bounds
@@ -162,16 +168,17 @@ def build_phase():
     from dream_go_torch.ops import build
 
     t0 = time.monotonic()
-    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        paths = dict(zip(names, pool.map(build.build, names)))
-    for name in names:
-        build.load(name)
-        for line in build.BUILD_LOGS.get(name, "").splitlines():
+    jobs = [(p.stem, False) for p in sorted(build.CSRC.glob("*.cu"))]
+    jobs.append(("ladder_planes", True))
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: build.build(*job), jobs))
+    for name, checked in jobs:
+        build.load(name, checked)
+        tag = f"{name}-check" if checked else name
+        for line in build.BUILD_LOGS.get(tag, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
-    phase("build", t0, ", ".join(f"{n} -> {p.name}" for n, p in
-                                 paths.items()))
+                log(f"  {tag}: {line.strip()}")
+    phase("build", t0, ", ".join(p.name for p in paths))
 
 
 # ---------------------------------------------------------------------------
@@ -285,13 +292,15 @@ def ladder_positions(dev):
 
 
 def curated_boards(dev):
-    """Seven boards: the ladder stress boards (the 31-rung staircase, the
+    """Nine boards: the ladder stress boards (the 31-rung staircase, the
     same broken by a white stone at (17,17), the 48-capture and the
-    12-escape swarms) and the three sanity-test ladder positions."""
+    12-escape swarms), the three sanity-test ladder positions, and the two
+    boards whose chases capture mid-ladder."""
     from dream_go_torch.go import boards
 
     return cat_states([boards.from_stones(boards.ladder_stress(), dev),
-                       ladder_positions(dev)])
+                       ladder_positions(dev),
+                       boards.from_stones(boards.ladder_capture(), dev)])
 
 
 def ladder_args(states):
@@ -304,7 +313,8 @@ def ladder_args(states):
 def ladder_parity(dev, states):
     """K2 against its plain version: the curated boards first, then the
     random ones, at B = 1, 7, 256 and 1024 (the plain reader in chunks of
-    LADDER_CHUNK boards), then the staircase with cut bounds."""
+    LADDER_CHUNK boards), then the staircase with cut bounds; then the
+    bounds-checked build on the B=1024 boards and the cut bounds."""
     from dream_go_torch.go.boards import STAIRCASE_START as STAIR
     from dream_go_torch.ops import ladder_kernel as LK
 
@@ -335,7 +345,18 @@ def ladder_parity(dev, states):
             check(int(cap[2].sum()) > 0 and int(esc[3].sum()) == 12,
                   "the swarms read wrong")
             check(int(cap[4:].sum()) > 0, "no ladder in the sanity positions")
+        if b == 256:
+            # the capture boards: black's chase from (3, 2) captures the
+            # stone at (6, 9) and wins; the escape at (2, 3) falls to a
+            # counter-ladder that captures, the unit's at (15, 3) holds
+            cap, esc = got
+            check(bool(cap[7, STAIR]) and bool(cap[7, 19 * 7 + 9])
+                  and int(cap[8].sum()) == 0,
+                  "the capture board reads wrong")
+            check(esc[8].nonzero()[:, 0].tolist() == [19 * 15 + 3],
+                  "the escape capture board reads wrong")
     planes = [int(x.sum()) for x in got]
+    want_all = want
     # the staircase with its bounds cut: 24 or 61 rungs, or no stack, lose
     # the capture (fail-safe); 62 rungs or one stack slot keep it
     sub = [t[:7].contiguous() for t in (st, cid, tm)]
@@ -348,12 +369,22 @@ def ladder_parity(dev, states):
               f"ladder_planes differs at budget {budget}, stack {stack_cap}")
         check(bool(got[0][0, STAIR]) == hit,
               f"staircase at budget {budget}, stack {stack_cap}")
+        got = LK.ladder_planes_checked(*sub, budget, stack_cap)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"the checked build differs at budget {budget}, "
+              f"stack {stack_cap}")
+    # a trap in the checked build raises at this synchronisation
+    got = LK.ladder_planes_checked(st, cid, tm)
     torch.cuda.synchronize()
+    check(torch.equal(got[0], want_all[0]) and torch.equal(got[1],
+                                                          want_all[1]),
+          f"the checked build differs at B={st.shape[0]}")
     phase("parity", t0, f"ladder_planes bit-exact vs plain at B="
           f"{list(PARITY_BATCHES)} (B=1024 plain in chunks of "
           f"{LADDER_CHUNK}), capture/escape points at B={b}: {planes}; "
-          "cut budget and stack fail safe (max abs err "
-          f"{worst})")
+          "cut budget and stack fail safe; the -DDG_CHECK build equal, no "
+          f"trap (max abs err {worst})")
     return float(worst)
 
 
@@ -819,17 +850,17 @@ def ladder_bound(sub, rungs: int) -> tuple[float, str]:
 
 def warp_chain(stats) -> int:
     """The most rungs one warp of the ladder kernel walks in a row: each
-    board's chases dealt round-robin over LADDER_WARPS warps, in the
-    order the plain version lists them."""
-    board, rungs = stats["job_board"], stats["job_rungs"]
-    if board.numel() == 0:
-        return 0
-    rank = (torch.arange(board.numel(), device=board.device)
-            - torch.searchsorted(board, board))
-    key = board * LADDER_WARPS + rank % LADDER_WARPS
-    total = torch.zeros(int(board.max() + 1) * LADDER_WARPS,
-                        dtype=torch.long, device=board.device)
-    return int(total.index_add_(0, key, rungs).max())
+    board's chases, in the order the plain version lists them, taken one
+    at a time by whichever of its LADDER_WARPS warps is free first (a rung
+    the unit of time), as the kernel's shared-memory counter deals them."""
+    free, longest = {}, 0
+    for board, rungs in zip(stats["job_board"].tolist(),
+                            stats["job_rungs"].tolist()):
+        warps = free.setdefault(board, [0] * LADDER_WARPS)
+        done = heapq.heappop(warps) + rungs
+        heapq.heappush(warps, done)
+        longest = max(longest, done)
+    return longest
 
 
 def ladder_rung_ms(dev) -> tuple[float, int]:

@@ -5,9 +5,10 @@ and the env-step kernel's parity cases.
 1 black, 2 white), its chain ids by flood fill.  :func:`ladder_stress`
 gives the boards that push the ladder readers to their bounds, rebuilt
 from the JAX package's tests (`tests/test_ladder_stress.py`
-``staircase_board``, `tests/test_ladder_bounds.py` swarms); the card
-tests and `chip_smoke.py` hold the ladder kernel to its plain version on
-them.  ``KO_MOVES``, :func:`ko_captured` and :func:`env_step_cases` give
+``staircase_board``, `tests/test_ladder_bounds.py` swarms), and
+:func:`ladder_capture` two on which a chase captures a third chain
+mid-ladder; the card tests and `chip_smoke.py` hold the ladder kernel to
+its plain version on them.  ``KO_MOVES``, :func:`ko_captured` and :func:`env_step_cases` give
 both of them the same ko boards and env-step inputs.
 """
 
@@ -94,6 +95,35 @@ def ladder_stress() -> list[list[int]]:
             for rc in ((r, c - 1), (r, c + 1), (r - 1, c), (r + 2, c)):
                 escs[pt(*rc)] = 2
     return [stair, broken, caps, escs]
+
+
+def ladder_capture() -> list[list[int]]:
+    """Two stones lists, black to move, on which a chase captures a chain
+    that is neither the chased one nor the attacker's, so that other
+    chains' liberties change mid-ladder:
+
+    - the staircase with a white stone at (6, 9) boxed by black at (5, 8),
+      (5, 9) and (6, 10): black's rung at (7, 9), 11 deep, captures it and
+      the chase from (3, 2) still wins;
+    - that board with black's first rung at (3, 2) played and the colours
+      swapped, plus an escape unit at (14, 3): black's escape at (2, 3)
+      fails to white's counter-ladder from (2, 4), whose rung at (7, 9)
+      captures the black stone at (6, 9); the unit's escape at (15, 3)
+      holds."""
+    pt = lambda r, c: 19 * r + c
+    board = ladder_stress()[0]
+    board[pt(6, 9)] = 2
+    for rc in ((5, 8), (5, 9), (6, 10)):
+        board[pt(*rc)] = 1
+    swapped = list(board)
+    swapped[pt(3, 2)] = 1
+    swapped = [3 - v if v else 0 for v in swapped]
+    r, c = 14, 3
+    for rc in ((r, c), (r + 1, c - 2), (r + 1, c + 2)):
+        swapped[pt(*rc)] = 1
+    for rc in ((r, c - 1), (r, c + 1), (r - 1, c), (r + 2, c)):
+        swapped[pt(*rc)] = 2
+    return [board, swapped]
 
 
 def ko_captured(states: GoState, ko: torch.Tensor) -> GoState:

@@ -9,6 +9,10 @@ the library is written to a temporary name and renamed into place, so
 builds started in parallel never load a half-written file.  Nothing here
 runs when a module is imported: a build happens at a kernel's first
 launch (or when a caller asks for it).
+
+``check=True`` builds a kernel's bounds-checked variant (``-DDG_CHECK``:
+device-side asserts on its indices, where the source has them) into its
+own ``lib<name>-check-<hash>.so``, beside the release build.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+CHECK_FLAGS = ["-DDG_CHECK"]
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -46,39 +51,49 @@ def nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def library_path(name: str) -> Path:
+def _flags(check: bool) -> list[str]:
+    return NVCC_FLAGS + CHECK_FLAGS if check else NVCC_FLAGS
+
+
+def _tag(name: str, check: bool) -> str:
+    return f"{name}-check" if check else name
+
+
+def library_path(name: str, check: bool = False) -> Path:
     """Where the library for kernel ``name`` (``csrc/<name>.cu``) lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(check)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{_tag(name, check)}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
+def build(name: str, check: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    its compiler output goes to ``BUILD_LOGS`` under ``name`` (or
+    ``<name>-check``)."""
+    out = library_path(name, check)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *_flags(check), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({' '.join(cmd)}):\n"
                            f"{proc.stdout}{proc.stderr}")
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    BUILD_LOGS[_tag(name, check)] = proc.stdout + proc.stderr
     os.replace(tmp, out)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, check: bool = False) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(_tag(name, check))
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _LIBS[name] = lib
+            lib = ctypes.CDLL(str(build(name, check)))
+            _LIBS[_tag(name, check)] = lib
         return lib
 
 

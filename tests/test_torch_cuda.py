@@ -94,8 +94,10 @@ PT = lambda r, c: 19 * r + c
 
 def _curated(dev):
     """The ladder stress boards (black to move): the 31-rung staircase, a
-    broken staircase, the 48-capture and the 12-escape swarms."""
-    return boards.from_stones(boards.ladder_stress(), dev)
+    broken staircase, the 48-capture and the 12-escape swarms; then the
+    two boards whose chases capture a third chain mid-ladder."""
+    return boards.from_stones(boards.ladder_stress() + boards.ladder_capture(),
+                              dev)
 
 
 def _ladder_args(states):
@@ -124,16 +126,55 @@ def test_ladder_kernel_on_stress_boards(cuda_device):
     assert bool(cap[0, PT(3, 2)]) and not bool(cap[0, PT(2, 3)])
     assert not bool(cap[1, PT(3, 2)])
     assert int(cap[2].sum()) > 0 and int(esc[3].sum()) == 12
-    # the fail-safe bounds: too few rungs or no stack loses the capture
-    for budget, stack_cap, hit in ((24, 8, False), (61, 8, False),
-                                   (62, 8, True), (320, 0, False),
-                                   (320, 1, True)):
-        cap, _ = LK.ladder_planes_kernel(*_ladder_args(states), budget,
-                                         stack_cap)
-        want, _ = LK.ladder_planes_plain(*_ladder_args(states), budget,
-                                         stack_cap)
-        assert torch.equal(cap, want)
-        assert bool(cap[0, PT(3, 2)]) == hit
+    # the chase that captures the stone at (6, 9) on its way still wins;
+    # the escape whose counter-ladder captures fails, the unit's holds
+    assert bool(cap[4, PT(3, 2)]) and bool(cap[4, PT(7, 9)])
+    assert esc[5].nonzero()[:, 0].tolist() == [PT(15, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget,stack_cap,hit", [
+    (320, 0, False), (320, 1, True), (320, 8, True), (24, 8, False),
+    (61, 8, False), (62, 8, True)])
+def test_ladder_kernel_staircase_bounds(cuda_device, budget, stack_cap, hit):
+    """The stress and capture boards at a cut stack or budget: the kernel
+    keeps the plain version's fail-safe answer; the staircase (31 rungs, 62
+    with the alternates read) loses its capture with too few rungs or no
+    stack."""
+    states = _curated(cuda_device)
+    got = LK.ladder_planes_kernel(*_ladder_args(states), budget, stack_cap)
+    want = LK.ladder_planes_plain(*_ladder_args(states), budget, stack_cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[0][0, PT(3, 2)]) == hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack_cap", [1, 8])
+def test_ladder_kernel_deals_more_chases_than_warps(cuda_device, stack_cap):
+    """The swarms hold 48 capture and 12 escape starts, more than the
+    kernel's 8 warps, which take them in whatever order they finish: 32
+    copies of each, read twice, all read as the plain version."""
+    stress = boards.ladder_stress()
+    one = boards.from_stones(stress[2:4], cuda_device)
+    want = LK.ladder_planes_plain(*_ladder_args(one), stack_cap=stack_cap)
+    many = boards.from_stones(stress[2:4] * 32, cuda_device)
+    for _ in range(2):
+        got = LK.ladder_planes_kernel(*_ladder_args(many),
+                                      stack_cap=stack_cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w.repeat(32, 1))
+
+
+@pytest.mark.cuda
+def test_ladder_kernel_checked_build_matches_plain(cuda_device):
+    """The bounds-checked build (-DDG_CHECK) traps on no board and reads
+    as the plain version."""
+    for states in (_curated(cuda_device),
+                   _boards(256, cuda_device, seed=11)[0]):
+        got = LK.ladder_planes_checked(*_ladder_args(states))
+        torch.cuda.synchronize()
+        want = LK.ladder_planes_plain(*_ladder_args(states))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

@@ -101,6 +101,64 @@ def test_plain_matches_oracle_and_raised_xla_on_swarms(board):
         assert not bool(bcap[0, p]) and not bool(besc[0, p])
 
 
+@pytest.mark.parametrize("which", [0, 1])
+def test_plain_matches_oracle_and_raised_xla_on_capture_boards(which,
+                                                               monkeypatch):
+    """The boards on which a chase captures a third chain mid-ladder
+    (`boards.ladder_capture`): black's winning chase from (3, 2), whose
+    rung at (7, 9) captures the white stone at (6, 9); an escape at (2, 3)
+    refuted by a counter-ladder whose rung captures.  The plain version
+    against the raised-bound XLA reader and the oracle on every
+    candidate; the port's placements do capture on the way."""
+    stones = tb.ladder_capture()[which]
+    js, ts = _one(stones)
+    removed = []
+    place = tl.place_stones
+
+    def counting(st, cid, color, p, libs):
+        out = place(st, cid, color, p, libs)
+        removed.append(int(((st != 0) & (out[0] == 0)).sum()))
+        return out
+
+    monkeypatch.setattr(tl, "place_stones", counting)
+    cap, esc = _plain(ts)
+    assert sum(removed) > 0
+    xcap, xesc = jax.jit(functools.partial(
+        jl.ladder_planes, max_candidates=64, max_escapes=16))(js)
+    np.testing.assert_array_equal(cap[0].numpy(), np.asarray(xcap))
+    np.testing.assert_array_equal(esc[0].numpy(), np.asarray(xesc))
+    b = LB._board(stones)
+    caps, escs = LB._candidates(b)
+    ocap, oesc = LB._oracle_planes(b, caps, escs)
+    for p in caps:
+        assert bool(cap[0, p]) == ocap[p], p
+    for p in escs:
+        assert bool(esc[0, p]) == oesc[p], p
+    if which == 0:
+        assert bool(cap[0, LS.pt(3, 2)]) and bool(cap[0, LS.pt(7, 9)])
+    else:
+        assert escs == [LS.pt(2, 3), LS.pt(15, 3)]
+        assert esc[0].nonzero()[:, 0].tolist() == [LS.pt(15, 3)]
+
+
+def test_checked_kernel_build_is_a_library_of_its_own():
+    """The bounds-checked build (``-DDG_CHECK``) is built beside the
+    release one under its own name; on the CPU its wrapper, like the
+    kernel's, reads with the plain version."""
+    from dream_go_torch.ops import build
+
+    release = build.library_path("ladder_planes")
+    checked = build.library_path("ladder_planes", check=True)
+    assert release.parent == checked.parent
+    assert release.name.startswith("libladder_planes-")
+    assert checked.name.startswith("libladder_planes-check-")
+    ts = tb.from_stones(tb.ladder_capture(), "cpu")
+    rows = layout.pack_states(ts)
+    args = rows[0], rows[1], ts.to_move.to(torch.int32)
+    got, want = tk.ladder_planes_checked(*args), tk.ladder_planes_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("budget,stack_cap,captured", [
     (None, None, True), (24, None, False), (61, None, False),
     (62, None, True), (None, 0, False), (None, 1, True)])
