@@ -7,19 +7,25 @@ Phases, in order, each printed with its seconds:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matmul and cuDNN;
 2. build: every CUDA kernel of the port, one nvcc per source, and the
-   ladder kernel's bounds-checked build (``-DDG_CHECK``), all started
-   together; each build's ptxas report (registers, shared memory, spills);
+   leaf-step and ladder kernels' bounds-checked builds (``-DDG_CHECK``),
+   all started together; each build's ptxas report (registers, shared
+   memory, spills), the checked one beside the release one;
 3. parity: each kernel against its plain PyTorch version on the card, bit
    for bit.  Boards come from the port's engine (random legal play stopped
    between 0 and 250 moves, passes, finished games, a super-ko in the
-   ring); the ladder kernel also reads the sanity-test ladder positions,
-   the 48-capture and 12-escape swarms, the 31-rung staircase and a broken
-   one, two boards on which a chase captures a third chain mid-ladder,
-   and the staircase again with its rung budget and branch stack cut
-   below what the chase needs (both must lose the capture); then its
-   bounds-checked build on the same B=1024 boards and cut bounds, which
-   must not trap; the env-step
-   kernel at B = 1, 7, 256, 1024 and 4096 with given random words, its
+   ring); the leaf-step kernel also steps the scripted boards that reach
+   its counting paths (three chains merged, two captured at once, set
+   unions, a ko found in a wrapped ring, a chain captured through two of
+   its stones by the move and by a super-ko candidate), then its
+   bounds-checked build
+   on the B=1024 boards, which must not trap; the ladder kernel also
+   reads the sanity-test ladder positions, the 48-capture and 12-escape
+   swarms, the 31-rung staircase and a broken one, two boards on which a
+   chase captures a third chain mid-ladder, and the staircase again with
+   its rung budget and branch stack cut below what the chase needs (both
+   must lose the capture); then its bounds-checked build on the same
+   B=1024 boards and cut bounds, which must not trap; the env-step kernel
+   at B = 1, 7, 256, 1024 and 4096 with given random words, its
    Philox words, one-hot weights (a pass slot and a super-ko point among
    them, which pass) and zero weights (all pass), then 200 chained steps
    at B=256 from fresh boards;
@@ -50,8 +56,9 @@ Phases, in order, each printed with its seconds:
    ladder positions on the card in bf16 within the stated tolerance of the
    CPU's float32 eval, with equal planes;
 7. timing: each kernel at the main path's batch, as CUDA-graph replays and
-   as eager calls, beside its bound and its plain version; the env-step
-   kernel at B=256 and at the bench's B=4096.
+   as eager calls, beside its bound and its plain version; the leaf-step
+   kernel also at the bench's B=1024, the env-step kernel at B=256 and at
+   the bench's B=4096.
 
 The second-to-last line is the card's name and power limit, the line
 before it one JSON object with a row per kernel, and the last line
@@ -95,6 +102,8 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mcts_sims_per_sec",
 #: the plain ladder reader runs B=1024 in chunks of this many boards
 LADDER_CHUNK = 256
 TIMING_BATCH = 256
+#: the leaf-step kernel also at the bench's MCTS batch
+LEAF_BENCH_BATCH = 1024
 #: the sanity-test ladder positions: fixture, moves replayed, colour to move
 #: (tests/test_sanity_positions.py LADDER_CASES)
 LADDER_POSITIONS = [("ladder_1", 70, 1), ("ladder_2", 18, 1),
@@ -169,10 +178,10 @@ def build_phase():
 
     t0 = time.monotonic()
     jobs = [(p.stem, False) for p in sorted(build.CSRC.glob("*.cu"))]
-    jobs.append(("ladder_planes", True))
+    jobs += [("leaf_step", True), ("ladder_planes", True)]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
-    for name, checked in jobs:
+    for name, checked in sorted(jobs):
         build.load(name, checked)
         tag = f"{name}-check" if checked else name
         for line in build.BUILD_LOGS.get(tag, "").splitlines():
@@ -221,6 +230,9 @@ def random_boards(n: int, dev, seed: int = 0):
 
 
 def leaf_step_parity(dev, states, actions):
+    """K1 against its plain version: random boards at B = 1, 7, 256 and
+    1024, then the scripted boards (:func:`leaf_step_cases`)."""
+    from dream_go_torch.go.boards import LEAF_CASES
     from dream_go_torch.ops import layout
     from dream_go_torch.ops import leaf_step as L
 
@@ -248,19 +260,68 @@ def leaf_step_parity(dev, states, actions):
         act, komi = actions[sel].contiguous(), states.komi[sel].contiguous()
         got = L.leaf_step(*args, act, komi)
         torch.cuda.synchronize()
-        want = L.leaf_step_plain(*args, act, komi)
-        torch.cuda.synchronize()
-        outs = list(zip(got[0], want[0])) + [(got[1], want[1]),
-                                             (got[2], want[2])]
-        for g, w in outs:
-            if not torch.equal(g, w):
-                bad = (g != w).nonzero()[:10].tolist()
-                raise RuntimeError(f"leaf_step differs at B={b}: {bad}")
-            worst = max(worst, float((g.double() - w.double()).abs().max()))
+        worst = max(worst, leaf_compare(
+            f"B={b}", got, L.leaf_step_plain(*args, act, komi)))
         if bool(((sel % 16) == 3).any()):  # a ko board: plane 29 is set
             check(float(got[1][:, 29].sum()) > 0, "no super-ko plane set")
+    worst = max(worst, leaf_step_cases(dev, states, actions, perm))
     phase("parity", t0, f"leaf_step bit-exact vs plain at B="
-          f"{list(PARITY_BATCHES)} (max abs err {worst})")
+          f"{list(PARITY_BATCHES)} on the random and the scripted boards "
+          f"({', '.join(c[0] for c in LEAF_CASES)}); the -DDG_CHECK build "
+          f"equal at B={max(PARITY_BATCHES)}, no trap (max abs err {worst})")
+    return worst
+
+
+def leaf_compare(what, got, want) -> float:
+    """Raise unless leaf_step's outputs equal the plain version's; returns
+    the max abs error (0)."""
+    worst = 0.0
+    outs = list(zip(got[0], want[0])) + [(got[1], want[1]),
+                                         (got[2], want[2])]
+    for g, w in outs:
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:10].tolist()
+            raise RuntimeError(f"leaf_step differs ({what}): {bad}")
+        worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return worst
+
+
+def leaf_step_cases(dev, states, actions, perm) -> float:
+    """The scripted boards of ``boards.LEAF_CASES``: each alone (B=1), then
+    ahead of random boards at B = 7, 256 and 1024; then the bounds-checked
+    build on the B=1024 batch."""
+    from dream_go_torch.go import boards
+    from dream_go_torch.ops import layout
+    from dream_go_torch.ops import leaf_step as L
+
+    cases, cact = boards.leaf_cases(dev)
+    worst = 0.0
+
+    def run(fn, sub, act, what):
+        args = [t.contiguous() for t in layout.pack_states(sub)]
+        komi = sub.komi.contiguous()
+        got = fn(*args, act, komi)
+        torch.cuda.synchronize()   # a trap in the checked build raises here
+        return max(worst, leaf_compare(what, got, L.leaf_step_plain(
+            *args, act, komi))), got
+
+    for i, (name, _, _) in enumerate(boards.LEAF_CASES):
+        one = torch.tensor([i], device=dev)
+        worst, got = run(L.leaf_step, cases.index(one), cact[one],
+                         f"{name}, B=1")
+        # a super-ko in the wrapped ring, or through a chain captured from
+        # two sides, is found
+        ko = boards.LEAF_KO.get(name)
+        check(ko is None or (bool(got[1][0, 29, ko])
+                             and not bool(got[2][0, ko])),
+              f"the super-ko of {name!r} is not found")
+    for b in PARITY_BATCHES[1:]:
+        sel = perm[:b - cases.batch]
+        sub = cat_states([cases, states.index(sel)])
+        act = torch.cat([cact, actions[sel]])
+        worst, _ = run(L.leaf_step, sub, act, f"scripted + random, B={b}")
+    worst, _ = run(L.leaf_step_checked, sub, act,
+                   f"the -DDG_CHECK build, B={sub.batch}")
     return worst
 
 
@@ -914,6 +975,32 @@ def env_step_bound(sub, with_bits: bool = False) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def leaf_step_timing(states, actions, sel):
+    """K1 on the boards ``sel`` (the main path's batch) and on all of
+    ``states`` (the bench's MCTS batch, LEAF_BENCH_BATCH); returns the
+    first row and logs both."""
+    from dream_go_torch.ops import layout
+    from dream_go_torch.ops import leaf_step as L
+
+    check(states.batch == LEAF_BENCH_BATCH, "leaf_step timing boards")
+    res = {}
+    for idx in (sel, torch.arange(states.batch, device=sel.device)):
+        sub = states.index(idx)
+        args = [t.contiguous() for t in layout.pack_states(sub)]
+        act, komi = actions[idx].contiguous(), sub.komi.contiguous()
+        leaf = lambda: L.leaf_step(*args, act, komi)
+        v = res[sub.batch] = dict(
+            ms=graph_ms(leaf), eager_ms=events_ms(leaf, 50),
+            plain_ms=events_ms(lambda: L.leaf_step_plain(*args, act, komi),
+                               10),
+            bound=leaf_step_bound(sub, act))
+        log(f"  leaf_step B={sub.batch}: kernel {v['ms'] * 1e3:.2f} us "
+            f"(eager call {v['eager_ms'] * 1e3:.2f} us), bound "
+            f"{v['bound'][0] * 1e3:.2f} us ({v['bound'][1]}), plain "
+            f"{v['plain_ms'] * 1e3:.1f} us")
+    return res[len(sel)]
+
+
 def env_step_timing(env_states):
     """K4 in the bench's mode (uniform weights, Philox words) at B=256 and
     at the bench's B=4096; returns the B=4096 row and logs both."""
@@ -977,11 +1064,7 @@ def timing_phase(states, actions, env_states):
     act, komi = actions[sel].contiguous(), sub.komi.contiguous()
     out = {}
 
-    leaf = lambda: L.leaf_step(*args, act, komi)
-    out["leaf_step"] = dict(
-        ms=graph_ms(leaf), eager_ms=events_ms(leaf, 50),
-        plain_ms=events_ms(lambda: L.leaf_step_plain(*args, act, komi), 10),
-        bound=leaf_step_bound(sub, act))
+    out["leaf_step"] = leaf_step_timing(states, actions, sel)
 
     largs = ladder_args(sub)
     stats = {}
@@ -1007,7 +1090,8 @@ def timing_phase(states, actions, env_states):
         f"is {longest} rungs ({longest * rung_ms * 1e3:.2f} us) and the "
         f"longest warp chain {chain} rungs ({chain * rung_ms * 1e3:.2f} us) "
         f"of {rungs} rungs in all")
-    phase("timing", t0, f"B={b} (env_step B={max(ENV_BATCHES)}): " + "; ".join(
+    phase("timing", t0, f"B={b} (env_step B={max(ENV_BATCHES)}; leaf_step "
+          f"B={LEAF_BENCH_BATCH} above): " + "; ".join(
         f"{k} kernel {v['ms'] * 1e3:.2f} us (eager call "
         f"{v['eager_ms'] * 1e3:.2f} us), bound {v['bound'][0] * 1e3:.2f} us "
         f"({v['bound'][1]}), plain {v['plain_ms'] * 1e3:.1f} us"

@@ -8,8 +8,10 @@ from the JAX package's tests (`tests/test_ladder_stress.py`
 ``staircase_board``, `tests/test_ladder_bounds.py` swarms), and
 :func:`ladder_capture` two on which a chase captures a third chain
 mid-ladder; the card tests and `chip_smoke.py` hold the ladder kernel to
-its plain version on them.  ``KO_MOVES``, :func:`ko_captured` and :func:`env_step_cases` give
-both of them the same ko boards and env-step inputs.
+its plain version on them.  ``KO_MOVES``, :func:`ko_captured` and
+:func:`env_step_cases` give both of them the same ko boards and env-step
+inputs, and ``LEAF_CASES`` (:func:`leaf_cases`, ``LEAF_KO``) the
+leaf-step kernel's boards that reach each of its counting paths.
 """
 
 from __future__ import annotations
@@ -27,6 +29,48 @@ KO_MOVES = [_pt(1, 0), _pt(2, 0), _pt(0, 1), _pt(3, 1), _pt(1, 2),
             _pt(2, 2), _pt(10, 10), _pt(1, 1)]
 KO_ACTION = _pt(2, 1)
 KO_RECAPTURE = _pt(1, 1)
+
+PASS = NN
+#: the leaf-step kernel's scripted cases, ``(name, moves from an empty board
+#: (PASS for a pass), action)``; each reaches one of the kernel's paths:
+#: - "merge three": black's move at (4,4) joins three black chains;
+#: - "capture two": black's move at (10,10) captures two white chains;
+#: - "union": after black's move, white's candidates at (14,4) (two white
+#:   chains next to it) and at (3,14) (a white chain and a capture next to
+#:   it), and black's at (16,4) (two black chains), take the set union;
+#: - "wrapped ko": 76 placements far from the corner fill the 64-entry ring
+#:   and wrap it, then KO_MOVES and black's capture at KO_ACTION: white's
+#:   recapture at KO_RECAPTURE is a super-ko found in the wrapped ring;
+#: - "two-sided capture": black's move at (1,1) captures the white corner
+#:   chain (0,0), (1,0), (0,1) through two of its stones;
+#: - "two-sided ko": white captures black's (1,1) and fills the corner with
+#:   white's move at (0,0), a chain whose one liberty (1,1) touches two of
+#:   its stones: black's recapture there repeats the position after black's
+#:   (0,2), a super-ko, so its hash must count that chain once.
+LEAF_CASES = [
+    ("merge three",
+     [_pt(4, 3), PASS, _pt(3, 4), PASS, _pt(5, 4), _pt(15, 15)], _pt(4, 4)),
+    ("capture two",
+     [_pt(9, 9), _pt(10, 9), _pt(11, 9), _pt(10, 11), _pt(10, 8), PASS,
+      _pt(9, 11), PASS, _pt(11, 11), PASS, _pt(10, 12), PASS], _pt(10, 10)),
+    ("union",
+     [_pt(16, 3), _pt(14, 3), _pt(16, 5), _pt(14, 5), _pt(4, 14),
+      _pt(5, 14), PASS, _pt(4, 13), PASS, _pt(4, 15), PASS, _pt(3, 13)],
+     _pt(10, 10)),
+    ("wrapped ko",
+     [m for x in range(19) for m in (_pt(x, 14), _pt(x, 16))]
+     + [m for x in range(19) for m in (_pt(x, 12), _pt(x, 18))] + KO_MOVES,
+     KO_ACTION),
+    ("two-sided capture",
+     [_pt(2, 0), _pt(2, 1), _pt(0, 2), _pt(1, 2), PASS, _pt(0, 1), PASS,
+      _pt(1, 0), PASS, _pt(0, 0)], _pt(1, 1)),
+    ("two-sided ko",
+     [_pt(1, 1), _pt(2, 1), _pt(2, 0), _pt(1, 2), _pt(0, 2), _pt(0, 1),
+      PASS, _pt(1, 0), PASS], _pt(0, 0)),
+]
+#: per case, the point at which the player to move after its action would
+#: repeat a position in the ring (a super-ko: plane 29 set, no candidate)
+LEAF_KO = {"wrapped ko": KO_RECAPTURE, "two-sided ko": _pt(1, 1)}
 
 #: the staircase's capture start: black at (3, 2) ladders the white stone
 #: at (2, 2) across the board in 31 rungs (62 with the alternates read)
@@ -124,6 +168,22 @@ def ladder_capture() -> list[list[int]]:
     for rc in ((r, c - 1), (r, c + 1), (r - 1, c), (r + 2, c)):
         swapped[pt(*rc)] = 2
     return [board, swapped]
+
+
+def leaf_cases(device) -> tuple[GoState, torch.Tensor]:
+    """The boards of ``LEAF_CASES``, each replayed from an empty board with
+    the engine, and their actions i32[len(LEAF_CASES)]."""
+    states = []
+    for _, moves, _ in LEAF_CASES:
+        s = new_states(1, device=device)
+        for m in moves:
+            s = step(s, torch.tensor([m], dtype=torch.int32, device=device))
+        states.append(s)
+    cat = GoState(**{k: torch.cat([getattr(s, k) for s in states])
+                     for k in states[0].fields()})
+    actions = torch.tensor([a for _, _, a in LEAF_CASES], dtype=torch.int32,
+                           device=device)
+    return cat, actions
 
 
 def ko_captured(states: GoState, ko: torch.Tensor) -> GoState:

@@ -3,8 +3,11 @@ new position.
 
 Replaces the Pallas TPU kernel `dream_go_tpu/ops/leaf_step.py::leaf_step`
 (``_make_kernel._kernel``, ``_chain_stats_g``) with a CUDA kernel written
-for Hopper, ``csrc/leaf_step.cu``, built with ``nvcc`` and bound with
-``ctypes`` (see :mod:`dream_go_torch.ops.build`).  For each board it:
+for Hopper, ``csrc/leaf_step.cu`` (one block of 384 threads per board; no
+serial section, chain sets built without atomics, liberties after a move
+counted directly outside the multi-chain cases, super-ko through a ring
+filter), built with ``nvcc`` and bound with ``ctypes`` (see
+:mod:`dream_go_torch.ops.build`).  For each board it:
 
 - applies the action (capture, merge, zobrist and chain-xor update, ring
   insert, pass and done handling);
@@ -20,7 +23,10 @@ planes f32[B,32,384] (plane-major) and cand bool[B,361].
 
 :func:`leaf_step_plain` is the same function in plain PyTorch (the rules
 engine and the feature extractor); :func:`leaf_step` runs it for tensors on
-the CPU and launches the kernel for tensors on a CUDA device.
+the CPU and launches the kernel for tensors on a CUDA device;
+:func:`leaf_step_checked` launches the kernel's bounds-checked build
+(``-DDG_CHECK``), whose device-side asserts trap on an index out of range
+or a chain id that is not a live chain's root.
 """
 
 from __future__ import annotations
@@ -56,8 +62,8 @@ def leaf_step_plain(stones, cid, cxp, hist, meta, hashw, action, komi):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("leaf_step").dg_leaf_step
+def _kernel(check: bool):
+    fn = build.load("leaf_step", check).dg_leaf_step
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -67,6 +73,18 @@ def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
     """Apply ``action`` per board and featurize the result (see module
     docstring).  CPU tensors take :func:`leaf_step_plain`; CUDA tensors
     launch the kernel on the current stream."""
+    return _step(stones, cid, cxp, hist, meta, hashw, action, komi,
+                 check=False)
+
+
+def leaf_step_checked(stones, cid, cxp, hist, meta, hashw, action, komi):
+    """:func:`leaf_step` with the kernel's bounds-checked build: an index
+    out of range traps, and the next synchronisation raises."""
+    return _step(stones, cid, cxp, hist, meta, hashw, action, komi,
+                 check=True)
+
+
+def _step(stones, cid, cxp, hist, meta, hashw, action, komi, check: bool):
     global launches
     if stones.device.type == "cpu":
         return leaf_step_plain(stones, cid, cxp, hist, meta, hashw, action,
@@ -90,6 +108,6 @@ def leaf_step(stones, cid, cxp, hist, meta, hashw, action, komi):
     zob = layout.zobrist_rows(str(dev))
     ptrs = [t.data_ptr() for t in (*state.values(), action, komi, zob,
                                    *outs, feats, cand)]
-    build.launch("leaf_step", _kernel(), dev, *ptrs, b)
+    build.launch("leaf_step", _kernel(check), dev, *ptrs, b)
     launches += 1
     return tuple(outs), feats, cand

@@ -13,7 +13,8 @@ import torch
 
 from dream_go_torch.go import engine
 from dream_go_torch.go.boards import (KO_ACTION, KO_MOVES, KO_RECAPTURE,
-                                      env_step_cases, ko_captured)
+                                      LEAF_CASES, LEAF_KO, env_step_cases,
+                                      ko_captured, leaf_cases)
 from dream_go_torch.ops import layout
 from dream_go_torch.ops import leaf_step as L
 
@@ -66,6 +67,59 @@ def test_leaf_step_kernel_matches_plain(cuda_device, batch):
     assert torch.equal(got[2], want[2])
     if batch > 1:
         assert float(got[1][0, 29, KO_RECAPTURE]) == 1.0   # the ko
+
+
+def _cat(parts):
+    return engine.GoState(**{k: torch.cat([getattr(s, k) for s in parts])
+                             for k in parts[0].fields()})
+
+
+def _leaf_equal(fn, states, action):
+    args = list(layout.pack_states(states))
+    got = fn(*args, action, states.komi)
+    torch.cuda.synchronize()   # a trap in the checked build raises here
+    want = L.leaf_step_plain(*args, action, states.komi)
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 7, 256, 1024])
+def test_leaf_step_kernel_on_scripted_boards(cuda_device, batch):
+    """The boards that reach the kernel's counting paths (three chains
+    merged, two captured at once, set unions, a super-ko found in a
+    wrapped ring, a chain captured through two of its stones): each alone
+    at B=1, else ahead of random boards."""
+    cases, cact = leaf_cases(cuda_device)
+    if batch == 1:
+        outs = [_leaf_equal(L.leaf_step, cases.index(
+            torch.tensor([i], device=cuda_device)), cact[i:i + 1])
+            for i in range(cases.batch)]
+        feats = torch.cat([o[1] for o in outs])
+        cand = torch.cat([o[2] for o in outs])
+    else:
+        rand, ract = _boards(batch - cases.batch, cuda_device,
+                             seed=batch + 4)
+        _, feats, cand = _leaf_equal(L.leaf_step, _cat([cases, rand]),
+                                     torch.cat([cact, ract]))
+    names = [c[0] for c in LEAF_CASES]
+    assert int(cases.placed_count[names.index("wrapped ko")]) > 64
+    for name, point in LEAF_KO.items():   # the super-ko points
+        assert float(feats[names.index(name), 29, point]) == 1.0
+        assert not bool(cand[names.index(name), point])
+
+
+@pytest.mark.cuda
+def test_leaf_step_checked_build_matches_plain(cuda_device):
+    """The bounds-checked build (-DDG_CHECK) traps on no board and steps as
+    the plain version: the scripted boards and random ones, 1024 in all."""
+    cases, cact = leaf_cases(cuda_device)
+    rand, ract = _boards(1024 - cases.batch, cuda_device, seed=13)
+    _leaf_equal(L.leaf_step_checked, _cat([cases, rand]),
+                torch.cat([cact, ract]))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's leaf-step kernel K1 in several checkouts, in turns.
+
+    python tools/leaf_step_turns.py TREE [TREE ...]
+
+Each TREE is an unpacked checkout (e.g. ``git archive`` of a commit); list
+one twice to time it twice, as in parent, change, change, parent.  Each runs
+in its own process with its own ``chip_smoke.py`` and
+``dream_go_torch.ops.leaf_step``: K1 on ``chip_smoke.random_boards(1024,
+seed=1)``, as CUDA-graph replays and eager calls, at B=256 (every fourth
+board, the main path's batch) and B=1024 (all of them, the bench's MCTS
+batch), each checked bit for bit against ``leaf_step_plain``.  Prints the
+card's name and power limit, one line per tree and a JSON summary.  Needs
+one CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+SNIPPET = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as C
+from dream_go_torch.ops import layout
+from dream_go_torch.ops import leaf_step as L
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+states, actions = C.random_boards(1024, dev, seed=1)
+out = {}
+for b in (256, 1024):
+    sel = torch.arange(b, device=dev) * (states.batch // b)
+    sub = states.index(sel)
+    args = [t.contiguous() for t in layout.pack_states(sub)]
+    act, komi = actions[sel].contiguous(), sub.komi.contiguous()
+    leaf = lambda: L.leaf_step(*args, act, komi)
+    got = leaf()
+    want = L.leaf_step_plain(*args, act, komi)
+    exact = all(torch.equal(g, w) for g, w in zip(got[0], want[0])) \\
+        and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    out[b] = dict(graph_us=C.graph_ms(leaf) * 1e3,
+                  eager_us=C.events_ms(leaf, 50) * 1e3, exact=exact)
+print(json.dumps(out))
+"""
+
+
+def main(trees: list[str]) -> int:
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(smi, flush=True)
+    rows = []
+    for tree in trees:
+        proc = subprocess.run([sys.executable, "-c", SNIPPET], cwd=tree,
+                              capture_output=True, text=True)
+        if proc.returncode:
+            print(f"{tree} failed:\n{proc.stderr}", file=sys.stderr)
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        rows.append({"tree": tree, **res})
+        print(f"{tree}: " + "; ".join(
+            f"B={b} {v['graph_us']:.2f} us (eager {v['eager_us']:.2f} us, "
+            f"bit-exact {v['exact']})" for b, v in res.items()), flush=True)
+    print(json.dumps({"leaf_step_turns": rows, "device": smi}))
+    return 0 if all(v["exact"] for r in rows for k, v in r.items()
+                    if k != "tree") else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
