@@ -7,7 +7,8 @@ Phases, in order, each printed with its seconds:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matmul and cuDNN;
 2. build: every CUDA kernel of the port, one nvcc per source, and the
-   leaf-step and ladder kernels' bounds-checked builds (``-DDG_CHECK``),
+   leaf-step, ladder and env-step kernels' bounds-checked builds
+   (``-DDG_CHECK``),
    all started together; each build's ptxas report (registers, shared
    memory, spills), the checked one beside the release one;
 3. parity: each kernel against its plain PyTorch version on the card, bit
@@ -28,11 +29,19 @@ Phases, in order, each printed with its seconds:
    at B = 1, 7, 256, 1024 and 4096 with given random words, its
    Philox words, one-hot weights (a pass slot and a super-ko point among
    them, which pass) and zero weights (all pass), then 200 chained steps
-   at B=256 from fresh boards;
+   at B=256 from fresh boards, then the scripted boards that reach its
+   paths (``boards.ENV_CASES``: a capture through two neighbours, suicide,
+   own chains of one and two liberties, a merge of three, super-kos in a
+   wrapped ring and through a two-sided capture, a ring entry that only
+   the exact compare clears, a finished board, a pass slot), alone and
+   ahead of the B=4096 boards, then its bounds-checked build on both,
+   which must not trap;
 4. reference: small self-play runs on the card (kernels) and on the CPU
    (plain versions) with a deterministic predictor give the same games:
    planes off, planes on (fused), planes on with the feature kernel
-   (unfused), and unfused leaves stepped by the env-step kernel;
+   (unfused), and unfused leaves stepped by the env-step kernel; then one
+   deep search, 400 rollouts from 8 boards, whose trees on the card and
+   on the CPU are equal in every field;
 5. self-play, each path with the kernels' launch counts set to 0 just
    before it and read just after, at the full 128 x 9 width with seeded
    random weights:
@@ -92,6 +101,10 @@ ENV_BATCHES = PARITY_BATCHES + (4096,)
 ENV_CHAIN_BATCH, ENV_CHAIN_STEPS = 256, 200
 #: the step-kernel search path, cut in depth
 STEP_GAMES, STEP_ROLLOUTS, STEP_MOVES = 64, 16, 8
+#: the deep search of the reference phase: 400 rollouts (the production
+#: budget, 1600, takes ~340 s on the card and ~310 s on the CPU, more than
+#: the smoke's time allows)
+REF_BOARDS, REF_SIMS = 8, 400
 #: the bench phase's cuts of its self-play stage
 BENCH_ARGS = ["--device", "cuda", "--full", "--selfplay-rollouts", "64",
               "--selfplay-window", "60"]
@@ -178,7 +191,8 @@ def build_phase():
 
     t0 = time.monotonic()
     jobs = [(p.stem, False) for p in sorted(build.CSRC.glob("*.cu"))]
-    jobs += [("leaf_step", True), ("ladder_planes", True)]
+    jobs += [("leaf_step", True), ("ladder_planes", True),
+             ("env_step", True)]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
     for name, checked in sorted(jobs):
@@ -505,7 +519,7 @@ def env_step_parity(dev, states):
     ENV_BATCHES, then ENV_CHAIN_STEPS chained Philox steps from fresh
     boards."""
     from dream_go_torch.go import engine
-    from dream_go_torch.go.boards import env_step_cases
+    from dream_go_torch.go.boards import ENV_CASES, env_step_cases
     from dream_go_torch.ops import env_step as E
     from dream_go_torch.ops import layout
 
@@ -549,13 +563,57 @@ def env_step_parity(dev, states):
         chain = list(got[0])
     torch.cuda.synchronize()
     placed = chain[4][:, 0, 1]
+    worst = max(worst, env_step_cases_parity(dev, states, rows, gen))
     phase("parity", t0, f"env_step bit-exact vs plain at B="
           f"{list(ENV_BATCHES)}: given bits, philox, one-hot (pass slot "
           f"and super-ko point pass), zero weights (all pass); placements "
           f"{counts}; {ENV_CHAIN_STEPS} chained steps at "
           f"B={ENV_CHAIN_BATCH} (stones placed {int(placed.min())}.."
-          f"{int(placed.max())}) (max abs err {worst})")
+          f"{int(placed.max())}); the scripted boards "
+          f"({', '.join(c[0] for c in ENV_CASES)}) alone and ahead of "
+          f"B={states.batch}; the -DDG_CHECK build equal on both, no trap "
+          f"(max abs err {worst})")
     return float(worst)
+
+
+def env_step_cases_parity(dev, states, rows, gen) -> int:
+    """K4 on the scripted boards of ``boards.ENV_CASES`` (one-hot weights):
+    each alone (B=1, Philox), then all ahead of ``states`` (uniform
+    weights) with Philox and with given words; then the bounds-checked
+    build on that batch, both modes."""
+    from dream_go_torch.go import boards
+    from dream_go_torch.ops import env_step as E
+    from dream_go_torch.ops import layout
+
+    cases, cw, cmoves = boards.env_cases(dev)
+    worst = 0
+    for i, (name, _, _, _) in enumerate(boards.ENV_CASES):
+        one = torch.tensor([i], device=dev)
+        args = [t.contiguous() for t in layout.pack_states(cases.index(one))]
+        got = E.env_step(*args, cw[one], 21)
+        torch.cuda.synchronize()
+        worst = max(worst, env_compare(f"{name}, B=1", got, E.env_step_plain(
+            *args, cw[one], 21)))
+        check(int(got[1][0]) == int(cmoves[i]),
+              f"{name}: moved {int(got[1][0])}, not {int(cmoves[i])}")
+    crows = layout.pack_states(cases)
+    args = [torch.cat([c, r[:states.batch - cases.batch]]).contiguous()
+            for c, r in zip(crows, rows)]
+    b = args[0].shape[0]
+    w = torch.cat([cw, torch.ones(b - cases.batch, 361, device=dev)])
+    bits = torch.randint(-2**31, 2**31, (b, 361), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    for fn, tag in ((E.env_step, ""), (E.env_step_checked, ", -DDG_CHECK")):
+        for given in (None, bits):
+            got = fn(*args, w, 22, given)
+            torch.cuda.synchronize()   # a trap in the checked build raises
+            mode = "philox" if given is None else "given bits"
+            worst = max(worst, env_compare(
+                f"scripted + random, B={b}, {mode}{tag}", got,
+                E.env_step_plain(*args, w, 22, given)))
+            check(torch.equal(got[1][:cases.batch], cmoves),
+                  f"scripted moves {got[1][:cases.batch].tolist()}{tag}")
+    return worst
 
 
 def parity_phase(dev):
@@ -630,6 +688,63 @@ def reference_phase(dev):
               f"the card run did not launch its kernel ({name})")
     phase("reference", t0, "4 games x 16 rollouts, card (kernels) == cpu "
           "(plain), move for move: " + "; ".join(v[0] for v in variants))
+    production_search(dev)
+
+
+def tree_fields(tree):
+    """``(name, tensor)`` of every field of a search tree, the per-node
+    board rows included."""
+    import dataclasses
+
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, torch.Tensor):
+            yield f.name, v
+        else:
+            for k, x in v.fields().items():
+                yield f"{f.name}.{k}", x
+
+
+def production_trees(device):
+    """The trees of one deep search, REF_SIMS rollouts
+    from REF_BOARDS boards of random play (a ko, a finished game among
+    them), deterministic predictor, no noise, the fused path (leaf_step on
+    the card, its plain version on the CPU), on ``device``; and its
+    seconds."""
+    from dream_go_torch.config import SearchConfig
+    from dream_go_torch.mcts import search as TS
+
+    states, _ = random_boards(REF_BOARDS, "cpu", seed=6)
+    states = states.replace(**{k: v.to(device)
+                               for k, v in states.fields().items()})
+    t0 = time.monotonic()
+    trees = TS.search(states, det_predictor(),
+                      torch.Generator(device=device),
+                      SearchConfig(dirichlet_noise=0.0, fused=True), REF_SIMS)
+    return trees, time.monotonic() - t0
+
+
+def production_search(dev):
+    """The card's trees of :func:`production_trees` against the CPU's,
+    equal in every field."""
+    from dream_go_torch.ops import leaf_step as L
+
+    t0 = time.monotonic()
+    before = L.launches
+    card, secs = production_trees(dev)
+    check(L.launches - before >= REF_SIMS,
+          "the card's search did not run leaf_step")
+    host, host_secs = production_trees("cpu")
+    for (name, a), (_, b) in zip(tree_fields(card), tree_fields(host)):
+        if not torch.equal(a.cpu(), b):
+            bad = (a.cpu() != b).nonzero()[:10].tolist()
+            raise RuntimeError(f"the {REF_SIMS}-rollout trees differ in "
+                               f"{name}: {bad}")
+    sizes = host.size.tolist()
+    check(max(sizes) > REF_SIMS // 2, f"tree sizes {sizes}")
+    phase("reference", t0, f"{REF_SIMS} rollouts x {REF_BOARDS} boards, "
+          f"trees equal in every field (card {secs:.1f} s, cpu "
+          f"{host_secs:.1f} s; tree sizes {sizes})")
 
 
 # ---------------------------------------------------------------------------

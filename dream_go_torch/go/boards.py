@@ -10,8 +10,9 @@ from the JAX package's tests (`tests/test_ladder_stress.py`
 mid-ladder; the card tests and `chip_smoke.py` hold the ladder kernel to
 its plain version on them.  ``KO_MOVES``, :func:`ko_captured` and
 :func:`env_step_cases` give both of them the same ko boards and env-step
-inputs, and ``LEAF_CASES`` (:func:`leaf_cases`, ``LEAF_KO``) the
-leaf-step kernel's boards that reach each of its counting paths.
+inputs, ``LEAF_CASES`` (:func:`leaf_cases`, ``LEAF_KO``) the
+leaf-step kernel's boards that reach each of its counting paths, and
+``ENV_CASES`` (:func:`env_cases`) the env-step kernel's.
 """
 
 from __future__ import annotations
@@ -71,6 +72,59 @@ LEAF_CASES = [
 #: per case, the point at which the player to move after its action would
 #: repeat a position in the ring (a super-ko: plane 29 set, no candidate)
 LEAF_KO = {"wrapped ko": KO_RECAPTURE, "two-sided ko": _pt(1, 1)}
+
+_OWN_TWO = [_pt(1, 0), _pt(0, 0), _pt(2, 0), _pt(0, 1), _pt(3, 0), _pt(2, 1),
+            _pt(15, 15), _pt(1, 2), _pt(15, 3), _pt(4, 0)]
+#: the env-step kernel's scripted cases, ``(name, moves from an empty board,
+#: the point given weight 1 (PASS: all weights 0), the move the step
+#: makes)``; each reaches one of the kernel's paths:
+#: - "two-sided capture": black's move at (1,1) captures the white corner
+#:   chain through two of its stones (counted once in the hash and in
+#:   the aggregate);
+#: - "suicide": white's (0,0) between black's (1,0) and (0,1) passes;
+#: - "own chain, two liberties": black's (1,1) has no empty neighbour and
+#:   captures nothing; its own chain (1,0)-(3,0) has two liberties, (1,1)
+#:   and (3,1), both reached from the row above in one warp slot: it
+#:   plays;
+#: - "own chain, one liberty": the same with white's (3,1) taking the
+#:   second liberty: it passes;
+#: - "own chain from two sides": black's (1,1) joins the chain (0,0),
+#:   (1,0), (0,1) through two of its stones (counted once in the new
+#:   aggregate);
+#: - "merge three": black's (4,4) joins three black chains;
+#: - "wrapped ko": the ring has wrapped (76 placements far from the
+#:   corner, then KO_MOVES and black's capture at KO_ACTION): white's
+#:   recapture at KO_RECAPTURE is a super-ko and passes;
+#: - "wrapped ko, upper half": the same after 100 placements, so that the
+#:   repeated position sits in ring slot 43 (the kernel's lanes compare
+#:   slots 32..63 apart from 0..31);
+#: - "two-sided ko": black's recapture at (1,1) of LEAF_CASES' corner ko
+#:   is a super-ko through a chain captured from two sides, and passes;
+#: - "filter miss": ring entry 0 is made (by :func:`env_cases`) to agree
+#:   with black's candidate hash at (10,10) in the filter's low 12 bits of
+#:   both words and to differ above them: the exact compare clears it,
+#:   and it plays;
+#: - "finished": two passes ended the game: it passes, frozen;
+#: - "pass slot": no point has weight: it passes.
+ENV_CASES = [
+    ("two-sided capture", LEAF_CASES[4][1], _pt(1, 1), _pt(1, 1)),
+    ("suicide", [_pt(1, 0), _pt(10, 10), _pt(0, 1)], _pt(0, 0), PASS),
+    ("own chain, two liberties", _OWN_TWO, _pt(1, 1), _pt(1, 1)),
+    ("own chain, one liberty", _OWN_TWO + [PASS, _pt(3, 1)], _pt(1, 1),
+     PASS),
+    ("own chain from two sides",
+     [_pt(0, 0), _pt(10, 10), _pt(1, 0), _pt(10, 12), _pt(0, 1),
+      _pt(12, 10)], _pt(1, 1), _pt(1, 1)),
+    ("merge three", LEAF_CASES[0][1], _pt(4, 4), _pt(4, 4)),
+    ("wrapped ko", LEAF_CASES[3][1] + [KO_ACTION], KO_RECAPTURE, PASS),
+    ("wrapped ko, upper half",
+     [m for x in range(12) for m in (_pt(x, 8), _pt(x, 6))]
+     + LEAF_CASES[3][1] + [KO_ACTION], KO_RECAPTURE, PASS),
+    ("two-sided ko", LEAF_CASES[5][1] + [_pt(0, 0)], _pt(1, 1), PASS),
+    ("filter miss", [_pt(3, 3), _pt(15, 15)], _pt(10, 10), _pt(10, 10)),
+    ("finished", [_pt(3, 3), PASS, PASS], _pt(10, 10), PASS),
+    ("pass slot", [_pt(3, 3)], PASS, PASS),
+]
 
 #: the staircase's capture start: black at (3, 2) ladders the white stone
 #: at (2, 2) across the board in 31 rungs (62 with the alternates read)
@@ -184,6 +238,37 @@ def leaf_cases(device) -> tuple[GoState, torch.Tensor]:
     actions = torch.tensor([a for _, _, a in LEAF_CASES], dtype=torch.int32,
                            device=device)
     return cat, actions
+
+
+def env_cases(device) -> tuple[GoState, torch.Tensor, torch.Tensor]:
+    """The boards of ``ENV_CASES``, each replayed from an empty board with
+    the engine (the "filter miss" board's ring entry 0 then rewritten),
+    their one-hot weights f32[len(ENV_CASES), 361] and the moves
+    i32[len(ENV_CASES)] the step makes."""
+    states = []
+    for name, moves, point, _ in ENV_CASES:
+        s = new_states(1, device=device)
+        for m in moves:
+            s = step(s, torch.tensor([m], dtype=torch.int32, device=device))
+        if name == "filter miss":
+            # the candidate's hash is the hash after the move; flip bit 20
+            # of word 0, above the filter's 12 bits
+            h = step(s, torch.tensor([point], dtype=torch.int32,
+                                     device=device)).hash
+            ring = s.hash_hist.clone()
+            ring[:, 0] = h ^ torch.tensor([1 << 20, 0], dtype=torch.int32,
+                                          device=device)
+            s = s.replace(hash_hist=ring)
+        states.append(s)
+    cat = GoState(**{k: torch.cat([getattr(s, k) for s in states])
+                     for k in states[0].fields()})
+    weights = torch.zeros(len(ENV_CASES), 361, device=device)
+    for i, (_, _, point, _) in enumerate(ENV_CASES):
+        if point < PASS:
+            weights[i, point] = 1.0
+    moves = torch.tensor([c[3] for c in ENV_CASES], dtype=torch.int32,
+                         device=device)
+    return cat, weights, moves
 
 
 def ko_captured(states: GoState, ko: torch.Tensor) -> GoState:

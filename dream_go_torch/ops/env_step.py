@@ -3,9 +3,12 @@ weighted move sample, and the board update.
 
 Replaces the Pallas TPU kernel `dream_go_tpu/ops/env_step.py::env_step`
 (``_kernel``) with a CUDA kernel written for Hopper, ``csrc/env_step.cu``
-(one block per board; the move is applied by ``apply_action`` of
-``csrc/go_board.cuh``, the leaf-step kernel's phase A), built with
-``nvcc`` and bound with ``ctypes`` (:mod:`dream_go_torch.ops.build`).
+(a block of four warps per board, its point sets as bitboards, liberties
+saturated at two, a ring filter for super-ko, Philox once per counter,
+the move derived by every thread), built with ``nvcc`` and bound with
+``ctypes`` (:mod:`dream_go_torch.ops.build`).  :func:`env_step_checked`
+launches the kernel's bounds-checked build (``-DDG_CHECK``), whose
+device-side asserts trap on an index out of range.
 
 Per board the move is a Gumbel argmax: with a 32-bit random word per
 point, ``u = (word >> 8) * 2**-24`` clipped to ``[1e-7, 1 - 1e-7]``, the
@@ -134,8 +137,8 @@ def env_step_plain(stones, cid, cxp, hist, meta, hashw, weights, seed,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("env_step").dg_env_step
+def _kernel(check: bool):
+    fn = build.load("env_step", check).dg_env_step
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_uint32]
                    + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -147,6 +150,20 @@ def env_step(stones, cid, cxp, hist, meta, hashw, weights, seed,
     """One step per board (see module docstring).  CPU tensors take
     :func:`env_step_plain`; CUDA tensors launch the kernel on the current
     stream."""
+    return _step(stones, cid, cxp, hist, meta, hashw, weights, seed,
+                 rng_bits, check=False)
+
+
+def env_step_checked(stones, cid, cxp, hist, meta, hashw, weights, seed,
+                     rng_bits=None):
+    """:func:`env_step` with the kernel's bounds-checked build: an index
+    out of range traps, and the next synchronisation raises."""
+    return _step(stones, cid, cxp, hist, meta, hashw, weights, seed,
+                 rng_bits, check=True)
+
+
+def _step(stones, cid, cxp, hist, meta, hashw, weights, seed, rng_bits,
+          check: bool):
     global launches
     if stones.device.type == "cpu":
         return env_step_plain(stones, cid, cxp, hist, meta, hashw, weights,
@@ -171,7 +188,7 @@ def env_step(stones, cid, cxp, hist, meta, hashw, weights, seed,
         return tuple(outs), move
     zob = layout.zobrist_rows(str(dev))
     bits_ptr = None if rng_bits is None else rng_bits.data_ptr()
-    build.launch("env_step", _kernel(), dev,
+    build.launch("env_step", _kernel(check), dev,
                  *[t.data_ptr() for t in state.values()],
                  weights.data_ptr(), bits_ptr, int(seed) & 0xFFFFFFFF,
                  zob.data_ptr(), *[t.data_ptr() for t in outs],

@@ -12,9 +12,10 @@ import pytest
 import torch
 
 from dream_go_torch.go import engine
-from dream_go_torch.go.boards import (KO_ACTION, KO_MOVES, KO_RECAPTURE,
-                                      LEAF_CASES, LEAF_KO, env_step_cases,
-                                      ko_captured, leaf_cases)
+from dream_go_torch.go.boards import (ENV_CASES, KO_ACTION, KO_MOVES,
+                                      KO_RECAPTURE, LEAF_CASES, LEAF_KO,
+                                      env_cases, env_step_cases, ko_captured,
+                                      leaf_cases)
 from dream_go_torch.ops import layout
 from dream_go_torch.ops import leaf_step as L
 
@@ -304,6 +305,72 @@ def test_env_step_kernel_chained_steps(cuda_device):
     w = torch.ones(256, 361, device=cuda_device)
     for t in range(200):
         got, moves = E.env_step(*rows, w, t)
+        want, want_moves = E.env_step_plain(*rows, w, t)
+        assert torch.equal(moves, want_moves), t
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), t
+        rows = got
+
+
+def _env_equal(fn, states, w, seed, bits=None):
+    rows = [t.contiguous() for t in layout.pack_states(states)]
+    got, moves = fn(*rows, w, seed, bits)
+    torch.cuda.synchronize()   # a trap in the checked build raises here
+    want, want_moves = E.env_step_plain(*rows, w, seed, bits)
+    assert torch.equal(moves, want_moves)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    return moves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 16, 256])
+def test_env_step_kernel_on_scripted_boards(cuda_device, batch):
+    """The boards that reach the kernel's paths (a capture through two
+    neighbours, suicide, own chains of one and two liberties, a merge of
+    three, super-kos in a wrapped ring and through a two-sided capture, a
+    ring entry that only the exact compare clears, a finished board, a
+    pass slot): each alone at B=1, else ahead of random boards; one-hot
+    weights with Philox and with given words."""
+    cases, cw, cmoves = env_cases(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    if batch == 1:
+        for i in range(cases.batch):
+            one = torch.tensor([i], device=cuda_device)
+            moves = _env_equal(E.env_step, cases.index(one), cw[one], 3)
+            assert int(moves[0]) == int(cmoves[i]), ENV_CASES[i][0]
+        return
+    rand, _ = _boards(batch - cases.batch, cuda_device, seed=batch + 5)
+    states = _cat([cases, rand])
+    w = torch.cat([cw, torch.ones(rand.batch, 361, device=cuda_device)])
+    bits = torch.randint(-2**31, 2**31, (batch, 361), generator=gen,
+                         device=cuda_device,
+                         dtype=torch.int64).to(torch.int32)
+    for given in (None, bits):
+        moves = _env_equal(E.env_step, states, w, 3, given)
+        assert torch.equal(moves[:cases.batch], cmoves)
+
+
+@pytest.mark.cuda
+def test_env_step_checked_build_matches_plain(cuda_device):
+    """The bounds-checked build (-DDG_CHECK) traps on no board and steps as
+    the plain version: the scripted boards and random ones, 1024 in all,
+    with Philox and given words, then 70 chained steps at B=256 (the ring
+    wraps)."""
+    cases, cw, _ = env_cases(cuda_device)
+    rand, _ = _boards(1024 - cases.batch, cuda_device, seed=17)
+    states = _cat([cases, rand])
+    w = torch.cat([cw, torch.ones(rand.batch, 361, device=cuda_device)])
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    bits = torch.randint(-2**31, 2**31, (1024, 361), generator=gen,
+                         device=cuda_device,
+                         dtype=torch.int64).to(torch.int32)
+    for given in (None, bits):
+        _env_equal(E.env_step_checked, states, w, 4, given)
+    rows = layout.pack_states(engine.new_states(256, device=cuda_device))
+    w = torch.ones(256, 361, device=cuda_device)
+    for t in range(70):
+        got, moves = E.env_step_checked(*rows, w, t)
         want, want_moves = E.env_step_plain(*rows, w, t)
         assert torch.equal(moves, want_moves), t
         for g, x in zip(got, want):

@@ -15,6 +15,7 @@ import _torch_bridge as B
 from dream_go_tpu.go import engine as jeng
 from dream_go_tpu.ops import env_step as jes
 from dream_go_torch.go import engine as teng
+from dream_go_torch.go.boards import ENV_CASES, env_cases
 from dream_go_torch.ops import env_step as E
 from dream_go_torch.ops import layout as tl
 
@@ -180,3 +181,48 @@ def test_philox_first_move_is_uniform():
     counts = np.bincount(_first_moves(), minlength=362)
     assert counts[361] == 0
     assert chisquare(counts[:361]).pvalue > 1e-3
+
+
+def _to_jax(ts):
+    """Port GoState -> JAX GoState (the inverse of ``B.to_torch``)."""
+    arrays = B.to_numpy(ts)
+    return jeng.new_states(ts.batch).replace(
+        **{f: jnp.asarray(arrays[f]) for f in B.FIELDS})
+
+
+def test_plain_matches_pallas_on_scripted_boards():
+    """The CUDA kernel's scripted boards (`boards.ENV_CASES`: a capture
+    through two neighbours, suicide, own chains of one and two liberties,
+    a merge of three, super-kos in a wrapped ring and through a two-sided
+    capture, a ring entry that only the exact compare clears, a finished
+    board, a pass slot), one-hot weights and the same numpy words to both,
+    in one batch: the port's plain step equals the Pallas kernel in
+    interpret mode, and makes each case's move.  The port's engine replays
+    the moves to the JAX engine's boards."""
+    ts, w, want_moves = env_cases("cpu")
+    for i, (_, moves, _, _) in enumerate(ENV_CASES):
+        s = jeng.new_states(1)
+        for m in moves:
+            s = _jstep(s, jnp.asarray([m], jnp.int32))
+        got = B.to_numpy(ts.index(torch.tensor([i])))
+        for f in ("stones", "chain_id", "hash", "placed_count", "done"):
+            np.testing.assert_array_equal(got[f], np.asarray(getattr(s, f)))
+    js = _to_jax(ts)
+    bits = np.random.default_rng(8).integers(
+        0, 2**32, (ts.batch, 361), dtype=np.uint64).astype(np.uint32)
+    js2, jmoves = jes.env_step(js, jnp.asarray(w.numpy()), 0, interpret=True,
+                               use_prng=False, rng_bits=jnp.asarray(bits))
+    ts2, tmoves = E.env_step_states(
+        ts, w, 0, rng_bits=torch.from_numpy(bits.view(np.int32)))
+    np.testing.assert_array_equal(tmoves.numpy(), np.asarray(jmoves))
+    np.testing.assert_array_equal(tmoves.numpy(), want_moves.numpy())
+    B.assert_states_equal(ts2, js2)
+    names = [c[0] for c in ENV_CASES]
+    # the corner chain captured through two of its stones is gone; the
+    # finished board stayed as it was
+    got = B.to_numpy(ts2)
+    assert got["stones"][names.index("two-sided capture"),
+                         [0, 1, 19]].tolist() == [0, 0, 0]
+    fin = names.index("finished")
+    assert got["move_count"][fin] == int(ts.move_count[fin])
+    assert int(ts.placed_count[names.index("wrapped ko")]) > 64

@@ -122,3 +122,41 @@ def test_search_with_ladder_planes_matches_jax(fused):
                    TSC(dirichlet_noise=0.0, fused=fused, ladder_features=True,
                        ladders_exact=True, feature_kernel=True), 16)
     _assert_trees_equal(tt, tj)
+
+
+def test_line_tree_past_backup_bound_matches_jax():
+    """The line tree of `tests/test_mcts.py` ``test_line_tree_deeper_than_
+    backup_bound``: a one-point policy at (15, 3), 140 simulations,
+    capacity 150, two empty boards.  The line grows past
+    MAX_BACKUP_DEPTH (128), so the walk caps and re-expands its deepest
+    edge; the trees are equal, every statistic."""
+    from dream_go_tpu.go import engine as jeng
+    from dream_go_tpu.mcts import predictor as JP
+    from dream_go_torch.mcts import predictor as TP
+
+    js = jeng.new_states(2)
+    tj = JS.search(js, JP.fake_predictor(72, value=0.6),
+                   jax.random.PRNGKey(0), JSC(dirichlet_noise=0.0), 140,
+                   capacity=150)
+    tt = TS.search(B.to_torch(js), TP.fake_predictor(72, value=0.6),
+                   torch.Generator().manual_seed(0),
+                   TSC(dirichlet_noise=0.0), 140, capacity=150)
+    assert np.all(np.asarray(tj.size) == 141)
+    assert int(np.asarray(tj.node_n[:, 0]).max()) > TS.MAX_BACKUP_DEPTH
+    _assert_trees_equal(tt, tj)
+
+
+def test_two_children_slots_match_jax():
+    """``children_slots=2``: a non-root node keeps two sparse slots, which
+    the 24 simulations fill (and then force, as `search.py:380` does); the
+    trees are equal, every statistic."""
+    js, _ = _jax_case()
+    tj = JS.search(js, B.det_predictor_jax(), jax.random.PRNGKey(7),
+                   JSC(dirichlet_noise=0.0, children_slots=2), SIMS)
+    tt = TS.search(B.to_torch(js), B.det_predictor_torch(),
+                   torch.Generator().manual_seed(0),
+                   TSC(dirichlet_noise=0.0, children_slots=2), SIMS)
+    assert np.asarray(tj.slot_action).shape[-1] == 2
+    # some non-root node has both of its slots in use
+    assert ((np.asarray(tj.slot_child)[:, 1:] >= 0).sum(-1) == 2).any()
+    _assert_trees_equal(tt, tj)

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's leaf-step kernel K1 in several checkouts, in turns.
+"""Time the PyTorch port's leaf-step kernel K1, or its env-step kernel K4,
+in several checkouts, in turns.
 
-    python tools/leaf_step_turns.py TREE [TREE ...]
+    python tools/leaf_step_turns.py [--env-step] TREE [TREE ...]
 
 Each TREE is an unpacked checkout (e.g. ``git archive`` of a commit); list
 one twice to time it twice, as in parent, change, change, parent.  Each runs
-in its own process with its own ``chip_smoke.py`` and
-``dream_go_torch.ops.leaf_step``: K1 on ``chip_smoke.random_boards(1024,
-seed=1)``, as CUDA-graph replays and eager calls, at B=256 (every fourth
-board, the main path's batch) and B=1024 (all of them, the bench's MCTS
-batch), each checked bit for bit against ``leaf_step_plain``.  Prints the
-card's name and power limit, one line per tree and a JSON summary.  Needs
-one CUDA device.
+in its own process with its own ``chip_smoke.py`` and kernel wrapper, as
+CUDA-graph replays and eager calls, each checked bit for bit against the
+plain version:
+
+- K1 (the default) on ``chip_smoke.random_boards(1024, seed=1)`` at B=256
+  (every fourth board, the main path's batch) and B=1024 (all of them, the
+  bench's MCTS batch);
+- K4 (``--env-step``) on ``chip_smoke.env_boards`` with uniform weights and
+  Philox words, the bench's mode, at B=256 and B=4096 (the bench's env
+  batch).
+
+Prints the card's name and power limit, one line per tree and a JSON
+summary.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import json
 import subprocess
 import sys
 
-SNIPPET = """
+LEAF_STEP = """
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as C
@@ -45,11 +52,38 @@ for b in (256, 1024):
 print(json.dumps(out))
 """
 
+ENV_STEP = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as C
+from dream_go_torch.ops import env_step as E
+from dream_go_torch.ops import layout
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+rows_all = [t.contiguous() for t in layout.pack_states(C.env_boards(dev))]
+out = {}
+for b in (256, 4096):
+    rows = [t[:b].contiguous() for t in rows_all]
+    w = torch.ones(b, 361, device=dev)
+    step = lambda: E.env_step(*rows, w, 7)
+    got, moves = step()
+    want, want_moves = E.env_step_plain(*rows, w, 7)
+    exact = torch.equal(moves, want_moves) and all(
+        torch.equal(g, x) for g, x in zip(got, want))
+    out[b] = dict(graph_us=C.graph_ms(step) * 1e3,
+                  eager_us=C.events_ms(step, 50) * 1e3, exact=exact)
+print(json.dumps(out))
+"""
 
-def main(trees: list[str]) -> int:
+
+def main(args: list[str]) -> int:
+    env = args[:1] == ["--env-step"]
+    trees = args[1:] if env else args
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
+    snippet, kernel = (ENV_STEP, "env_step") if env else \
+        (LEAF_STEP, "leaf_step")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -57,7 +91,7 @@ def main(trees: list[str]) -> int:
     print(smi, flush=True)
     rows = []
     for tree in trees:
-        proc = subprocess.run([sys.executable, "-c", SNIPPET], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", snippet], cwd=tree,
                               capture_output=True, text=True)
         if proc.returncode:
             print(f"{tree} failed:\n{proc.stderr}", file=sys.stderr)
@@ -67,7 +101,7 @@ def main(trees: list[str]) -> int:
         print(f"{tree}: " + "; ".join(
             f"B={b} {v['graph_us']:.2f} us (eager {v['eager_us']:.2f} us, "
             f"bit-exact {v['exact']})" for b, v in res.items()), flush=True)
-    print(json.dumps({"leaf_step_turns": rows, "device": smi}))
+    print(json.dumps({f"{kernel}_turns": rows, "device": smi}))
     return 0 if all(v["exact"] for r in rows for k, v in r.items()
                     if k != "tree") else 1
 
