@@ -7,7 +7,7 @@ Phases, in order, each printed with its seconds:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matmul and cuDNN;
 2. build: every CUDA kernel of the port, one nvcc per source, and the
-   leaf-step, ladder and env-step kernels' bounds-checked builds
+   leaf-step, ladder, feature and env-step kernels' bounds-checked builds
    (``-DDG_CHECK``),
    all started together; each build's ptxas report (registers, shared
    memory, spills), the checked one beside the release one;
@@ -25,7 +25,15 @@ Phases, in order, each printed with its seconds:
    chase captures a third chain mid-ladder, and the staircase again with
    its rung budget and branch stack cut below what the chase needs (both
    must lose the capture); then its bounds-checked build on the same
-   B=1024 boards and cut bounds, which must not trap; the env-step kernel
+   B=1024 boards and cut bounds, which must not trap; the feature kernel,
+   all five rows at every point, at B = 1, 7, 256 and 1024, then the
+   scripted boards that reach its counting paths (``boards.FEATURE_CASES``
+   and their colour swaps: a capture through two stones, one own chain
+   through two sides, two and three own chains, an own chain and a
+   capture, a stone captured with its chain, a single stone, edges and
+   corners, a chain over every word, ~280 chains) alone and ahead of the
+   curated and random boards, then its bounds-checked build on the B=1024
+   random boards and on those, which must not trap; the env-step kernel
    at B = 1, 7, 256, 1024 and 4096 with given random words, its
    Philox words, one-hot weights (a pass slot and a super-ko point among
    them, which pass) and zero weights (all pass), then 200 chained steps
@@ -66,8 +74,8 @@ Phases, in order, each printed with its seconds:
    CPU's float32 eval, with equal planes;
 7. timing: each kernel at the main path's batch, as CUDA-graph replays and
    as eager calls, beside its bound and its plain version; the leaf-step
-   kernel also at the bench's B=1024, the env-step kernel at B=256 and at
-   the bench's B=4096.
+   and feature kernels also at the bench's B=1024, the env-step kernel at
+   B=256 and at the bench's B=4096.
 
 The second-to-last line is the card's name and power limit, the line
 before it one JSON object with a row per kernel, and the last line
@@ -115,8 +123,10 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mcts_sims_per_sec",
 #: the plain ladder reader runs B=1024 in chunks of this many boards
 LADDER_CHUNK = 256
 TIMING_BATCH = 256
-#: the leaf-step kernel also at the bench's MCTS batch
+#: the leaf-step kernel also at the bench's MCTS batch, the feature kernel
+#: at its ``--full`` feature batch
 LEAF_BENCH_BATCH = 1024
+FEATURE_BENCH_BATCH = 1024
 #: the sanity-test ladder positions: fixture, moves replayed, colour to move
 #: (tests/test_sanity_positions.py LADDER_CASES)
 LADDER_POSITIONS = [("ladder_1", 70, 1), ("ladder_2", 18, 1),
@@ -192,7 +202,7 @@ def build_phase():
     t0 = time.monotonic()
     jobs = [(p.stem, False) for p in sorted(build.CSRC.glob("*.cu"))]
     jobs += [("leaf_step", True), ("ladder_planes", True),
-             ("env_step", True)]
+             ("libs_after", True), ("env_step", True)]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
     for name, checked in sorted(jobs):
@@ -464,30 +474,55 @@ def ladder_parity(dev, states):
 
 
 def libs_after_parity(dev, states):
+    """K3 against its plain version, all five rows at every point: random
+    boards at B = 1, 7, 256 and 1024; the scripted boards of
+    ``boards.FEATURE_CASES`` (and their colour swaps) alone, then ahead of
+    the curated and random boards at B = 256 and 1024; then the
+    bounds-checked build on the B=1024 random boards and on the scripted
+    batch."""
+    from dream_go_torch.go import boards
     from dream_go_torch.ops import layout
     from dream_go_torch.ops import libs_after as LA
 
     t0 = time.monotonic()
-    rows = layout.pack_states(states)
     worst = 0
-    for b in PARITY_BATCHES:
-        st, cid = rows[0][:b].contiguous(), rows[1][:b].contiguous()
-        got = LA.features_raw(st, cid)
-        torch.cuda.synchronize()
+
+    def run(fn, sub, what):
+        st, cid = (t.contiguous() for t in layout.pack_states(sub)[:2])
+        got = fn(st, cid)
+        torch.cuda.synchronize()   # a trap in the checked build raises here
         want = LA.features_raw_plain(st, cid)
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:10].tolist()
-            raise RuntimeError(f"libs_after differs at B={b}: {bad}")
-        worst = max(worst, int((got - want).abs().max()))
-    sub = states.index(torch.arange(7, device=dev))
-    raw = LA.board_features_raw(sub)
-    la = LA.liberties_after_both(sub)
+            raise RuntimeError(f"libs_after differs ({what}): {bad}")
+        return max(worst, int((got - want).abs().max()))
+
+    for b in PARITY_BATCHES:
+        worst = run(LA.features_raw, states.index(
+            torch.arange(b, device=dev)), f"B={b}")
+    cases = boards.feature_cases(dev)
+    worst = run(LA.features_raw, cases, "scripted")
+    scripted = cat_states([cases, curated_boards(dev)])
+    for b in PARITY_BATCHES[2:]:
+        sub = cat_states([scripted, states.index(
+            torch.arange(b - scripted.batch, device=dev))])
+        worst = run(LA.features_raw, sub, f"scripted + random, B={b}")
+    worst = run(LA.features_raw_checked, states,
+                f"the -DDG_CHECK build, B={states.batch}")
+    worst = run(LA.features_raw_checked, sub,
+                f"the -DDG_CHECK build, scripted + random, B={sub.batch}")
+    small = states.index(torch.arange(7, device=dev))
+    raw = LA.board_features_raw(small)
+    la = LA.liberties_after_both(small)
     check(torch.equal(la[0], raw["libs_if_black"])
           and torch.equal(la[1], raw["libs_if_white"]),
           "liberties_after_both disagrees with board_features_raw")
     phase("parity", t0, f"board_features_raw (all five rows) and "
           f"liberties_after_both bit-exact vs plain at B="
-          f"{list(PARITY_BATCHES)} (max abs err {worst})")
+          f"{list(PARITY_BATCHES)}; the scripted boards "
+          f"({', '.join(c[0] for c in boards.FEATURE_CASES)}, and swapped) "
+          f"alone and ahead of B={sub.batch}; the -DDG_CHECK build equal on "
+          f"both, no trap (max abs err {worst})")
     return float(worst)
 
 
@@ -1116,6 +1151,30 @@ def leaf_step_timing(states, actions, sel):
     return res[len(sel)]
 
 
+def libs_after_timing(states, sel):
+    """K3 on the boards ``sel`` (the main path's batch) and on all of
+    ``states`` (the bench's ``--full`` feature batch,
+    FEATURE_BENCH_BATCH); returns the first row and logs both."""
+    from dream_go_torch.ops import layout
+    from dream_go_torch.ops import libs_after as LA
+
+    check(states.batch == FEATURE_BENCH_BATCH, "libs_after timing boards")
+    res = {}
+    for idx in (sel, torch.arange(states.batch, device=sel.device)):
+        sub = states.index(idx)
+        st, cid = (t.contiguous() for t in layout.pack_states(sub)[:2])
+        feats = lambda: LA.features_raw(st, cid)
+        v = res[sub.batch] = dict(
+            ms=graph_ms(feats), eager_ms=events_ms(feats, 50),
+            plain_ms=events_ms(lambda: LA.features_raw_plain(st, cid), 10),
+            bound=libs_after_bound(sub))
+        log(f"  board_features_raw B={sub.batch}: kernel "
+            f"{v['ms'] * 1e3:.2f} us (eager call {v['eager_ms'] * 1e3:.2f} "
+            f"us), bound {v['bound'][0] * 1e3:.2f} us ({v['bound'][1]}), "
+            f"plain {v['plain_ms'] * 1e3:.1f} us")
+    return res[len(sel)]
+
+
 def env_step_timing(env_states):
     """K4 in the bench's mode (uniform weights, Philox words) at B=256 and
     at the bench's B=4096; returns the B=4096 row and logs both."""
@@ -1167,16 +1226,11 @@ def graph_ms(fn, reps=50):
 
 def timing_phase(states, actions, env_states):
     from dream_go_torch.ops import ladder_kernel as LK
-    from dream_go_torch.ops import layout
-    from dream_go_torch.ops import leaf_step as L
-    from dream_go_torch.ops import libs_after as LA
 
     t0 = time.monotonic()
     b = TIMING_BATCH
     sel = torch.arange(b, device=states.stones.device) * (states.batch // b)
     sub = states.index(sel)
-    args = [t.contiguous() for t in layout.pack_states(sub)]
-    act, komi = actions[sel].contiguous(), sub.komi.contiguous()
     out = {}
 
     out["leaf_step"] = leaf_step_timing(states, actions, sel)
@@ -1193,12 +1247,7 @@ def timing_phase(states, actions, env_states):
     rung_ms, stair_chain = ladder_rung_ms(states.stones.device)
     longest, chain = stats["longest_chase"], warp_chain(stats)
 
-    feats = lambda: LA.features_raw(args[0], args[1])
-    out["board_features_raw"] = dict(
-        ms=graph_ms(feats), eager_ms=events_ms(feats, 50),
-        plain_ms=events_ms(lambda: LA.features_raw_plain(args[0], args[1]),
-                           10),
-        bound=libs_after_bound(sub))
+    out["board_features_raw"] = libs_after_timing(states, sel)
     out["env_step"] = env_step_timing(env_states)
     log(f"  ladder_planes serial chain: {rung_ms * 1e3:.3f} us a rung "
         f"(staircase, {stair_chain} rungs, B=1); at B={b} the longest chase "
@@ -1206,7 +1255,8 @@ def timing_phase(states, actions, env_states):
         f"longest warp chain {chain} rungs ({chain * rung_ms * 1e3:.2f} us) "
         f"of {rungs} rungs in all")
     phase("timing", t0, f"B={b} (env_step B={max(ENV_BATCHES)}; leaf_step "
-          f"B={LEAF_BENCH_BATCH} above): " + "; ".join(
+          f"B={LEAF_BENCH_BATCH} and board_features_raw "
+          f"B={FEATURE_BENCH_BATCH} above): " + "; ".join(
         f"{k} kernel {v['ms'] * 1e3:.2f} us (eager call "
         f"{v['eager_ms'] * 1e3:.2f} us), bound {v['bound'][0] * 1e3:.2f} us "
         f"({v['bound'][1]}), plain {v['plain_ms'] * 1e3:.1f} us"

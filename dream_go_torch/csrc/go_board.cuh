@@ -1,6 +1,6 @@
-// Board constants and point helpers shared by the kernels that play a
-// move: the leaf-step kernel (leaf_step.cu) and the env-step kernel
-// (env_step.cu).
+// Board constants and point helpers shared by the kernels that read a
+// board: the leaf-step kernel (leaf_step.cu), the env-step kernel
+// (env_step.cu) and the feature kernel (libs_after.cu).
 //
 // Layout per board (ops/layout.py): stones, cid i32[384]; cxp i32[2][384];
 // hist i32[2][128] (64 ring entries used); meta i32[8] = to_move, placed,

@@ -12,7 +12,8 @@ its plain version on them.  ``KO_MOVES``, :func:`ko_captured` and
 :func:`env_step_cases` give both of them the same ko boards and env-step
 inputs, ``LEAF_CASES`` (:func:`leaf_cases`, ``LEAF_KO``) the
 leaf-step kernel's boards that reach each of its counting paths, and
-``ENV_CASES`` (:func:`env_cases`) the env-step kernel's.
+``ENV_CASES`` (:func:`env_cases`) the env-step kernel's, and
+``FEATURE_CASES`` (:func:`feature_cases`) the feature kernel's.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .engine import BLACK, GoState, legal_mask, new_states, step
-from .topology import NN
+from .topology import NBR, NN
 
 _pt = lambda x, y: 19 * y + x
 #: a scripted ko: these moves from an empty board, then black's capture at
@@ -124,6 +125,81 @@ ENV_CASES = [
     ("filter miss", [_pt(3, 3), _pt(15, 15)], _pt(10, 10), _pt(10, 10)),
     ("finished", [_pt(3, 3), PASS, PASS], _pt(10, 10), PASS),
     ("pass slot", [_pt(3, 3)], PASS, PASS),
+]
+
+
+
+def _most_chains() -> tuple[list[int], list[int]]:
+    """Black and white points of a board near the most chains a legal
+    position holds: stones coloured as a checkerboard (no two neighbours of
+    one colour, so every stone is a chain of its own), the points with
+    (x + 2 y) % 5 == 0 empty (each point of the board's inside then has one
+    empty neighbour), and the edge stones without one emptied too."""
+    empty = {_pt(x, y) for y in range(19) for x in range(19)
+             if (x + 2 * y) % 5 == 0}
+    stones = [q for q in range(NN) if q not in empty]
+    lonely = [q for q in stones
+              if not any(n in empty for n in NBR[q] if n < NN)]
+    stones = [q for q in stones if q not in lonely]
+    black = [q for q in stones if (q % 19 + q // 19) % 2 == 0]
+    return black, [q for q in stones if q not in black]
+
+
+_CROSS = [_pt(x, 16) for x in range(19)] + [_pt(9, y) for y in range(16)]
+#: the feature kernel's scripted cases, ``(name, black points, white
+#: points, the point meant)``; :func:`feature_cases` also gives each with
+#: the colours swapped, so that both colours take each path.  Black at
+#: the point meant (white where named) takes:
+#: - "atari through two stones": no own chain; the white chain (2,1),
+#:   (2,2), (1,2), whose one liberty is (1,1), is captured through two of
+#:   its stones;
+#: - "own chain from two sides": one black chain, through (5,4) and (6,5);
+#:   its empty neighbour (5,6) touches the chain, (4,5) does not;
+#: - "two own chains": (9,8) and (10,9), which share the liberty (10,8);
+#: - "three own chains": (4,13), (3,14) and (5,14), two sharing (3,13);
+#: - "own chain and a capture": the black chain (14,15), (14,16), (15,16)
+#:   and the white chain (15,14), (15,15) in atari, whose stone (15,15)
+#:   touches the black chain but not the point (14,14);
+#: - "stone captured with its chain": the point is the black stone (1,5) of
+#:   a chain in atari; black has one own chain there and no capture, white
+#:   three own chains and the capture of the stone's own chain, the point
+#:   itself among the captured stones;
+#: - "single stone": the black stone (9,15) has no own neighbour; white
+#:   has one own chain, the stone (10,15), and no capture;
+#: - "edges and corners": black chains on columns 18 and 0 joined to a
+#:   second chain at (17,4) and (1,11) (their dilations must not wrap
+#:   around a row's end), two chains joined in the corner (18,18), and
+#:   stones in the other corners;
+#: - "long chain": the cross of row 16 and column 9 (every word of the
+#:   board) joined to (7,5) at (8,5); at (18,18), black's row 18 in atari
+#:   captures white's row 17 and white's captures black's;
+#: - "most chains": ~280 one-stone chains (a checkerboard of stones with
+#:   an empty point next to each), for any table of chains.
+FEATURE_CASES = [
+    ("atari through two stones",
+     [_pt(2, 0), _pt(3, 1), _pt(3, 2), _pt(2, 3), _pt(1, 3), _pt(0, 2)],
+     [_pt(2, 1), _pt(2, 2), _pt(1, 2)], _pt(1, 1)),
+    ("own chain from two sides",
+     [_pt(5, 4), _pt(6, 4), _pt(6, 5), _pt(6, 6)], [_pt(12, 12)],
+     _pt(5, 5)),
+    ("two own chains", [_pt(9, 8), _pt(10, 9)], [_pt(3, 3)], _pt(9, 9)),
+    ("three own chains", [_pt(4, 13), _pt(3, 14), _pt(5, 14)], [_pt(15, 3)],
+     _pt(4, 14)),
+    ("own chain and a capture",
+     [_pt(14, 15), _pt(14, 16), _pt(15, 16), _pt(16, 14), _pt(15, 13),
+      _pt(16, 15)], [_pt(15, 14), _pt(15, 15)], _pt(14, 14)),
+    ("stone captured with its chain", [_pt(1, 5), _pt(1, 6)],
+     [_pt(0, 5), _pt(0, 6), _pt(2, 5), _pt(2, 6), _pt(1, 4)], _pt(1, 5)),
+    ("single stone", [_pt(9, 15)], [_pt(10, 15)], _pt(9, 15)),
+    ("edges and corners",
+     [_pt(18, y) for y in range(3, 7)] + [_pt(16, 4)]
+     + [_pt(0, y) for y in range(10, 14)] + [_pt(2, 11)]
+     + [_pt(18, 17), _pt(17, 18), _pt(0, 0), _pt(1, 0), _pt(18, 0)],
+     [_pt(0, 1), _pt(0, 18), _pt(1, 18), _pt(17, 0)], _pt(17, 4)),
+    ("long chain",
+     _CROSS + [_pt(7, 5)] + [_pt(x, 18) for x in range(18)],
+     [_pt(x, 17) for x in range(19)], _pt(8, 5)),
+    ("most chains", *_most_chains(), _pt(1, 1)),
 ]
 
 #: the staircase's capture start: black at (3, 2) ladders the white stone
@@ -269,6 +345,21 @@ def env_cases(device) -> tuple[GoState, torch.Tensor, torch.Tensor]:
     moves = torch.tensor([c[3] for c in ENV_CASES], dtype=torch.int32,
                          device=device)
     return cat, weights, moves
+
+
+def feature_cases(device) -> GoState:
+    """The boards of ``FEATURE_CASES``, then the same with the colours
+    swapped (black to move)."""
+    boards = []
+    for swap in (False, True):
+        for _, black, white, _ in FEATURE_CASES:
+            stones = [0] * NN
+            for q in black:
+                stones[q] = 2 if swap else 1
+            for q in white:
+                stones[q] = 1 if swap else 2
+            boards.append(stones)
+    return from_stones(boards, device)
 
 
 def ko_captured(states: GoState, ko: torch.Tensor) -> GoState:

@@ -3,9 +3,14 @@ for both colours, chain liberties and pseudo-legality.
 
 Replaces the Pallas TPU kernel `dream_go_tpu/ops/libs_after.py` (one
 ``_kernel`` behind ``liberties_after_both`` and ``board_features_raw``)
-with one CUDA kernel written for Hopper, ``csrc/libs_after.cu`` (per-chain
-384-bit sets, one block per board), built with ``nvcc`` and bound with
-``ctypes`` (:mod:`dream_go_torch.ops.build`).
+with one CUDA kernel written for Hopper, ``csrc/libs_after.cu`` (a block
+of four warps per board, its point sets as bitboards, member words only
+for live chains, direct counts and the set union only where a point needs
+it), built with ``nvcc`` and bound with ``ctypes``
+(:mod:`dream_go_torch.ops.build`).  :func:`features_raw_checked` launches
+the kernel's bounds-checked build (``-DDG_CHECK``), whose device-side
+asserts trap on an index out of range or a chain id that is not its
+chain's root.
 
 :func:`features_raw` takes kernel-layout rows (stones, cid
 i32[B, 1, 384], :mod:`ops.layout`) and returns i32[B, 5, 361]: rows
@@ -48,8 +53,8 @@ def features_raw_plain(stones, cid) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("libs_after").dg_libs_after
+def _kernel(check: bool):
+    fn = build.load("libs_after", check).dg_libs_after
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -59,6 +64,16 @@ def features_raw(stones, cid) -> torch.Tensor:
     """i32[B, 5, 361] (see module docstring).  CPU tensors take
     :func:`features_raw_plain`; CUDA tensors launch the kernel on the
     current stream."""
+    return _features(stones, cid, check=False)
+
+
+def features_raw_checked(stones, cid) -> torch.Tensor:
+    """:func:`features_raw` with the kernel's bounds-checked build: an index
+    out of range traps, and the next synchronisation raises."""
+    return _features(stones, cid, check=True)
+
+
+def _features(stones, cid, check: bool) -> torch.Tensor:
     global launches
     if stones.device.type == "cpu":
         return features_raw_plain(stones, cid)
@@ -71,7 +86,7 @@ def features_raw(stones, cid) -> torch.Tensor:
     out = torch.empty(b, 5, NN, dtype=torch.int32, device=dev)
     if b == 0:
         return out
-    build.launch("libs_after", _kernel(), dev, stones.data_ptr(),
+    build.launch("libs_after", _kernel(check), dev, stones.data_ptr(),
                  cid.data_ptr(), out.data_ptr(), b)
     launches += 1
     return out

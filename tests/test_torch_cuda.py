@@ -245,6 +245,38 @@ def test_libs_after_kernel_matches_plain(cuda_device, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [0, 256])
+def test_libs_after_kernel_on_scripted_boards(cuda_device, batch):
+    """The boards that reach the kernel's counting paths
+    (``boards.FEATURE_CASES`` and their colour swaps: a capture through two
+    stones, one own chain through two sides, two and three own chains, an
+    own chain and a capture, a stone captured with its chain, a single
+    stone, edges and corners, a chain over every word, ~280 chains): alone,
+    then ahead of random boards; all five rows at every point."""
+    states = boards.feature_cases(cuda_device)
+    if batch:
+        rand, _ = _boards(batch - states.batch, cuda_device, seed=batch + 6)
+        states = _cat([states, rand])
+    rows = layout.pack_states(states)
+    got = LA.features_raw(rows[0], rows[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, LA.features_raw_plain(rows[0], rows[1]))
+
+
+@pytest.mark.cuda
+def test_libs_after_checked_build_matches_plain(cuda_device):
+    """The bounds-checked build (-DDG_CHECK) traps on no board and counts as
+    the plain version: the scripted boards, the ladder stress and capture
+    boards and random ones, 1024 in all."""
+    cases = _cat([boards.feature_cases(cuda_device), _curated(cuda_device)])
+    rand, _ = _boards(1024 - cases.batch, cuda_device, seed=19)
+    rows = layout.pack_states(_cat([cases, rand]))
+    got = LA.features_raw_checked(rows[0], rows[1])
+    torch.cuda.synchronize()   # a trap in the checked build raises here
+    assert torch.equal(got, LA.features_raw_plain(rows[0], rows[1]))
+
+
+@pytest.mark.cuda
 def test_ladder_and_libs_after_reject_bad_inputs(cuda_device):
     states, _ = _boards(2, cuda_device, seed=0)
     st, cid, tm = _ladder_args(states)

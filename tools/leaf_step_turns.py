@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's leaf-step kernel K1, or its env-step kernel K4,
-in several checkouts, in turns.
+"""Time the PyTorch port's leaf-step kernel K1, its env-step kernel K4 or
+its feature kernel K3, in several checkouts, in turns.
 
-    python tools/leaf_step_turns.py [--env-step] TREE [TREE ...]
+    python tools/leaf_step_turns.py [--env-step | --libs-after] TREE [TREE ...]
 
 Each TREE is an unpacked checkout (e.g. ``git archive`` of a commit); list
 one twice to time it twice, as in parent, change, change, parent.  Each runs
@@ -15,7 +15,11 @@ plain version:
   bench's MCTS batch);
 - K4 (``--env-step``) on ``chip_smoke.env_boards`` with uniform weights and
   Philox words, the bench's mode, at B=256 and B=4096 (the bench's env
-  batch).
+  batch);
+- K3 (``--libs-after``) on ``chip_smoke.random_boards(1024, seed=1)`` at
+  B=256 (every fourth board, as the smoke's timing phase) and B=1024 (the
+  bench's ``--full`` feature stage), all five rows against
+  ``features_raw_plain``.
 
 Prints the card's name and power limit, one line per tree and a JSON
 summary.  Needs one CUDA device.
@@ -75,15 +79,38 @@ for b in (256, 4096):
 print(json.dumps(out))
 """
 
+LIBS_AFTER = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as C
+from dream_go_torch.ops import layout
+from dream_go_torch.ops import libs_after as LA
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+states, _ = C.random_boards(1024, dev, seed=1)
+rows = layout.pack_states(states)
+out = {}
+for b in (256, 1024):
+    sel = torch.arange(b, device=dev) * (states.batch // b)
+    st, cid = rows[0][sel].contiguous(), rows[1][sel].contiguous()
+    feats = lambda: LA.features_raw(st, cid)
+    exact = torch.equal(feats(), LA.features_raw_plain(st, cid))
+    out[b] = dict(graph_us=C.graph_ms(feats) * 1e3,
+                  eager_us=C.events_ms(feats, 50) * 1e3, exact=exact)
+print(json.dumps(out))
+"""
+
+MODES = {"--env-step": (ENV_STEP, "env_step"),
+         "--libs-after": (LIBS_AFTER, "libs_after")}
+
 
 def main(args: list[str]) -> int:
-    env = args[:1] == ["--env-step"]
-    trees = args[1:] if env else args
+    mode = args[0] if args[:1] and args[0] in MODES else None
+    trees = args[1:] if mode else args
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
-    snippet, kernel = (ENV_STEP, "env_step") if env else \
-        (LEAF_STEP, "leaf_step")
+    snippet, kernel = MODES.get(mode, (LEAF_STEP, "leaf_step"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
