@@ -49,7 +49,9 @@ Phases, in order, each printed with its seconds:
    planes off, planes on (fused), planes on with the feature kernel
    (unfused), and unfused leaves stepped by the env-step kernel; then one
    deep search, 400 rollouts from 8 boards, whose trees on the card and
-   on the CPU are equal in every field;
+   on the CPU are equal in every field.  The CPU sides of this phase and
+   of the serve phase run in a spawned process of their own while the
+   card runs;
 5. self-play, each path with the kernels' launch counts set to 0 just
    before it and read just after, at the full 128 x 9 width with seeded
    random weights:
@@ -63,6 +65,22 @@ Phases, in order, each printed with its seconds:
    - the step-kernel search, ``SearchConfig(fused=False,
      step_kernel=True)``, 64 games x 16 rollouts x 8 moves (the env-step
      kernel, and not the leaf-step kernel);
+   - GTP serving and reanalyze (the serve phase): the deterministic
+     predictor's answers to `gtp_script` (genmoves, reg_genmove, a
+     cleanup genmove, undo, showboard, loadsgf of a sample game cut at
+     move 380, final_score, final_status_list) and its reanalyze and
+     ex-it lines of the three sample games, 16 rollouts, equal on the
+     card and on the CPU (computed meanwhile in a process of its own;
+     any ``?`` answer fails the run); then ``cli.main(["--gtp", ...])``
+     at 128 x 9 on swapped stdin/stdout: ten 100-rollout genmoves, the
+     same position again with one genmove at the default 1600 rollouts
+     and final_score (K1 once per simulation), three genmoves and
+     final_score with ``--weights tests/fixtures/sanity_net.json`` (K2),
+     and ``--ponder`` (a move, 2 s, a genmove that continues the
+     pondered tree); then ``--reanalyze`` of eight self-play games of
+     the rl20 run at 100 rollouts (every line parses, every patched
+     move carries ``TV[100]`` and a 362-entry policy); genmove latency,
+     final_score seconds, take()'s wait and positions/s are logged;
    - the benchmark entry, ``dream_go_torch.bench.main`` in this process
      with ``--full`` and two cuts, ``--selfplay-rollouts 64
      --selfplay-window 60``: the env stage (4096 boards, 151 env-step
@@ -90,6 +108,8 @@ import base64
 import concurrent.futures
 import heapq
 import json
+import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -113,6 +133,19 @@ STEP_GAMES, STEP_ROLLOUTS, STEP_MOVES = 64, 16, 8
 #: budget, 1600, takes ~340 s on the card and ~310 s on the CPU, more than
 #: the smoke's time allows)
 REF_BOARDS, REF_SIMS = 8, 400
+#: the serve phase: genmoves at 100 rollouts (then one at the CLI's
+#: default 1600), three with the sanity net, seconds of pondering, self-play
+#: games reanalyzed; the card-against-CPU session's rollouts and the move
+#: cap of its loaded game (late in sample game 3, so the greedy scorer
+#: plays ~20 moves)
+SERVE_ROLLOUTS, SERVE_GENMOVES, SANITY_GENMOVES = 100, 10, 3
+PONDER_WAIT, REANALYZE_GAMES = 2.0, 8
+#: the first eight games of `models/rl20/gen_0000.sgf` (generation 0 of the
+#: rl20 run; the generation files themselves are not committed)
+REANALYZE_FILE = "tests/fixtures/rl20_gen0000_first8.sgf"
+SERVE_REF_ROLLOUTS, SERVE_REF_CAP = 16, 380
+#: torch threads of the process that computes the CPU references
+HOST_THREADS = 4
 #: the bench phase's cuts of its self-play stage
 BENCH_ARGS = ["--device", "cuda", "--full", "--selfplay-rollouts", "64",
               "--selfplay-window", "60"]
@@ -684,46 +717,63 @@ def det_predictor():
     return Predictor(predict)
 
 
-def reference_phase(dev):
-    """Card and CPU self-play, deterministic predictor, three search
-    configurations.  With planes on, the card reads ladders with the
-    kernel (every candidate) and the CPU with the bounded exact reader (24
-    capture and 8 escape starts a board); from empty boards no position of
-    these 12-move games comes near those bounds, so the two agree, and the
-    bound tests (tests/test_torch_ladder.py) hold the difference."""
+#: the reference phase's search configurations: a name and the search
+#: knobs; the kernel each must launch on the card is in `reference_phase`
+REF_VARIANTS = [
+    ("planes off, fused", dict(fused=True)),
+    ("planes on, fused", dict(fused=True, ladder_features=True,
+                              ladders_exact=True)),
+    ("planes on, unfused, feature kernel",
+     dict(fused=False, feature_kernel=True, ladder_features=True,
+          ladders_exact=True)),
+    ("unfused, step kernel", dict(fused=False, step_kernel=True))]
+
+
+def reference_selfplay(kw, device) -> list[str]:
+    """4 games x 16 rollouts x 12 moves of self-play with the
+    deterministic predictor, no noise, EARLY-C, the search knobs ``kw``,
+    on ``device``: the SGF lines with their dates stripped."""
     from dream_go_torch.config import SearchConfig, SelfPlayConfig
-    from dream_go_torch.ops import env_step as E
-    from dream_go_torch.ops import ladder_kernel as LK
-    from dream_go_torch.ops import libs_after as LA
     from dream_go_torch.selfplay.search_play import \
         search_self_play_continuous
 
+    cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=12,
+                         temperature_moves=0)
+    scfg = SearchConfig(num_rollout=16, dirichlet_noise=0.0, adaptive=True,
+                        **kw)
+    return [re.sub(r"DT\[[^\]]*\]", "", g)
+            for g in search_self_play_continuous(
+                det_predictor(), cfg, scfg, seed=0, batch=4, device=device)]
+
+
+def reference_phase(dev, host):
+    """Card and CPU self-play, deterministic predictor, the search
+    configurations of ``REF_VARIANTS``; the CPU's runs go to ``host``, a
+    process of its own, while the card runs.  With planes on, the card
+    reads ladders with the kernel (every candidate) and the CPU with the
+    bounded exact reader (24 capture and 8 escape starts a board); from
+    empty boards no position of these 12-move games comes near those
+    bounds, so the two agree, and the bound tests
+    (tests/test_torch_ladder.py) hold the difference."""
+    from dream_go_torch.ops import env_step as E
+    from dream_go_torch.ops import ladder_kernel as LK
+    from dream_go_torch.ops import libs_after as LA
+
     t0 = time.monotonic()
-    variants = [
-        ("planes off, fused", dict(fused=True), None),
-        ("planes on, fused", dict(fused=True, ladder_features=True,
-                                  ladders_exact=True), LK),
-        ("planes on, unfused, feature kernel",
-         dict(fused=False, feature_kernel=True, ladder_features=True,
-              ladders_exact=True), LA),
-        ("unfused, step kernel", dict(fused=False, step_kernel=True), E)]
-    for name, kw, kernel in variants:
-        cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=12,
-                             temperature_moves=0)
-        scfg = SearchConfig(num_rollout=16, dirichlet_noise=0.0,
-                            adaptive=True, **kw)
+    on_host = [host.submit(reference_selfplay, kw, "cpu")
+               for _, kw in REF_VARIANTS]
+    host_trees = host.submit(production_trees, "cpu")
+    for (name, kw), kernel, cpu in zip(REF_VARIANTS, (None, LK, LA, E),
+                                       on_host):
         before = kernel.launches if kernel else 0
-        runs = [search_self_play_continuous(det_predictor(), cfg, scfg,
-                                            seed=0, batch=4, device=d)
-                for d in (dev, "cpu")]
-        strip = [[re.sub(r"DT\[[^\]]*\]", "", g) for g in r] for r in runs]
-        check(len(strip[0]) == 4 and strip[0] == strip[1],
-              f"self-play on the card differs from the CPU ({name})")
+        card = reference_selfplay(kw, dev)
         check(kernel is None or kernel.launches > before,
               f"the card run did not launch its kernel ({name})")
+        check(len(card) == 4 and card == cpu.result(),
+              f"self-play on the card differs from the CPU ({name})")
     phase("reference", t0, "4 games x 16 rollouts, card (kernels) == cpu "
-          "(plain), move for move: " + "; ".join(v[0] for v in variants))
-    production_search(dev)
+          "(plain), move for move: " + "; ".join(v[0] for v in REF_VARIANTS))
+    production_search(dev, host_trees)
 
 
 def tree_fields(tree):
@@ -759,9 +809,9 @@ def production_trees(device):
     return trees, time.monotonic() - t0
 
 
-def production_search(dev):
-    """The card's trees of :func:`production_trees` against the CPU's,
-    equal in every field."""
+def production_search(dev, host_trees):
+    """The card's trees of :func:`production_trees` against the CPU's
+    (``host_trees``, a future of the CPU's), equal in every field."""
     from dream_go_torch.ops import leaf_step as L
 
     t0 = time.monotonic()
@@ -769,7 +819,7 @@ def production_search(dev):
     card, secs = production_trees(dev)
     check(L.launches - before >= REF_SIMS,
           "the card's search did not run leaf_step")
-    host, host_secs = production_trees("cpu")
+    host, host_secs = host_trees.result()
     for (name, a), (_, b) in zip(tree_fields(card), tree_fields(host)):
         if not torch.equal(a.cpu(), b):
             bad = (a.cpu() != b).nonzero()[:10].tolist()
@@ -914,6 +964,265 @@ def selfplay_phase(dev):
     return {"leaf_step": launches_on["leaf_step"],
             "ladder_planes": launches_on["ladder_planes"],
             "board_features_raw": launches_unf["board_features_raw"]}
+
+
+# ---------------------------------------------------------------------------
+# 5a. GTP serving, reanalyze and ex-it
+
+
+def sample_lines() -> list[str]:
+    """The three games of ``tests/fixtures/sample_games.sgf``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures", "sample_games.sgf")
+    with open(path) as fh:
+        return [line.strip() for line in fh if line.strip()]
+
+
+def gtp_script(sgf_path: str, cap: int = SERVE_REF_CAP) -> list[str]:
+    """The GTP session held card against CPU: genmoves of every kind,
+    undo, a loaded game cut at ``cap`` moves, and its score."""
+    return ["clear_board", "komi 6.5", "play b q16", "genmove w",
+            "genmove b", "genmove w", "reg_genmove b",
+            "kgs-genmove_cleanup b", "undo", "showboard",
+            "gomill-explain_last_move", f"loadsgf {sgf_path} {cap}",
+            "showboard", "final_score", "final_status_list dead", "quit"]
+
+
+def gtp_answers(engine, script) -> list[str]:
+    """The engine's answer to each command; a ``?`` answer fails the run
+    (the engine turns every exception, a kernel fault too, into one)."""
+    out = []
+    for cmd in script:
+        answer, _ = engine.handle(cmd)
+        check(not answer.startswith("?"),
+              f"GTP {cmd!r} answered {answer.strip()!r}")
+        out.append(answer)
+    return out
+
+
+def serve_reference(device, sgf_path: str):
+    """The deterministic predictor's GTP answers to :func:`gtp_script`
+    (16 rollouts, no noise), and its reanalyze and ex-it lines of the
+    sample games (16 rollouts, EARLY-C off), dates stripped, on
+    ``device``."""
+    from dream_go_torch.config import SearchConfig
+    from dream_go_torch.gtp import GtpEngine
+    from dream_go_torch.selfplay import reanalyze as RA
+
+    eng = GtpEngine(det_predictor(), SearchConfig(dirichlet_noise=0.0),
+                    num_rollout=SERVE_REF_ROLLOUTS, device=device)
+    answers = gtp_answers(eng, gtp_script(sgf_path))
+    cfg = SearchConfig(dirichlet_noise=0.0, adaptive=False)
+    annotated = [[re.sub(r"DT\[[^\]]*\]", "", line)
+                  for line in fn(sample_lines(), det_predictor(), cfg,
+                                 num_sims=SERVE_REF_ROLLOUTS, device=device)]
+                 for fn in (RA.reanalyze, RA.ex_it)]
+    return answers, annotated
+
+
+class ScriptedIO:
+    """stdin and stdout of an in-process GTP session: yields the script's
+    lines (a number in the script waits that many seconds) and keeps
+    each answer with the seconds since its command was read."""
+
+    def __init__(self, script):
+        self.script = script
+        self.answers = []
+        self._sent = None
+
+    def __iter__(self):
+        for item in self.script:
+            if isinstance(item, (int, float)):
+                time.sleep(item)
+                continue
+            self._sent = time.monotonic()
+            yield item + "\n"
+
+    def write(self, text):
+        self.answers.append((text.strip(), time.monotonic() - self._sent))
+
+    def flush(self):
+        pass
+
+
+def gtp_session(argv, script):
+    """``cli.main(argv)`` serving ``script`` on swapped stdin/stdout, with
+    the launch counts zeroed before and read after: ``(answers,
+    launches)``, each answer ``(cmd, text, seconds)``."""
+    from dream_go_torch import cli
+
+    io_ = ScriptedIO(script)
+
+    def run():
+        saved = sys.stdin, sys.stdout
+        sys.stdin, sys.stdout = io_, io_
+        try:
+            return cli.main(argv)
+        finally:
+            sys.stdin, sys.stdout = saved
+
+    rc, launches, _ = counted(run)
+    check(rc == 0, f"cli.main({argv}) exited {rc}")
+    cmds = [c for c in script if isinstance(c, str)]
+    check(len(io_.answers) == len(cmds), f"{len(io_.answers)} answers to "
+          f"{len(cmds)} commands")
+    for cmd, (text, _) in zip(cmds, io_.answers):
+        check(text.startswith("="), f"GTP {cmd!r} answered {text!r}")
+    return [(c, t, s) for c, (t, s) in zip(cmds, io_.answers)], launches
+
+
+def serve_phase(dev, host):
+    """GTP serving and reanalyze on the card: the card's answers and
+    annotated lines against the CPU's (computed meanwhile by ``host``, a
+    process of its own), then GTP at the full 128 x 9 width (100-rollout genmoves,
+    one at the CLI's default 1600, final_score; the sanity net, whose
+    planes 30/31 run K2; pondering) and reanalyze of real self-play games,
+    each with the kernels' launch counts zeroed before and read after."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    from dream_go_torch import cli
+    from dream_go_torch.gtp.ponder import PonderService
+    from dream_go_torch.utils import sgf
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        game = f"{tmp}/game.sgf"
+        with open(game, "w") as fh:
+            fh.write(sample_lines()[2] + "\n")
+        on_host = host.submit(serve_reference, "cpu", game)
+
+        # 1. the card's answers and lines == the CPU's
+        t0 = time.monotonic()
+        (answers, annotated), launches, _ = counted(
+            lambda: serve_reference(dev, game))
+        check(launches["leaf_step"] > 0, "GTP and reanalyze on the card "
+              "never launched leaf_step")
+        card_secs = time.monotonic() - t0
+
+        # 2. GTP at full width
+        t0 = time.monotonic()
+        moves = [f"genmove {'bw'[i % 2]}" for i in range(SERVE_GENMOVES)]
+        got, launches_a = gtp_session(
+            ["--gtp", "--num-rollout", str(SERVE_ROLLOUTS), "--seed", "0"],
+            ["clear_board"] + moves + ["quit"])
+        played = [(cmd[-1], text[2:]) for cmd, text, _ in got
+                  if cmd.startswith("genmove")]
+        check(all(v != "resign" for _, v in played), f"resigned: {played}")
+        lat100 = [s for cmd, _, s in got if cmd.startswith("genmove")]
+        check(launches_a["leaf_step"] >= SERVE_ROLLOUTS * SERVE_GENMOVES,
+              f"100-rollout genmoves: launches {launches_a}")
+        got, launches_b = gtp_session(
+            ["--gtp", "--seed", "0"],
+            ["clear_board"] + [f"play {c} {v}" for c, v in played]
+            + ["genmove b", "final_score", "quit"])
+        lat1600 = got[-3][2]
+        score, score_secs = got[-2][1], got[-2][2]
+        check(launches_b["leaf_step"] >= 1600,
+              f"1600-rollout genmove: launches {launches_b}")
+        got, launches_s = gtp_session(
+            ["--gtp", "--num-rollout", str(SERVE_ROLLOUTS), "--seed", "0",
+             "--weights", "tests/fixtures/sanity_net.json"],
+            ["clear_board"] + moves[:SANITY_GENMOVES]
+            + ["final_score", "quit"])
+        check(launches_s["leaf_step"] >= SERVE_ROLLOUTS * SANITY_GENMOVES
+              and launches_s["ladder_planes"] > 0,
+              f"sanity-net session: launches {launches_s}")
+        sanity_lat = [s for cmd, _, s in got if cmd.startswith("genmove")]
+        sanity_score = got[-2][2]
+        taken = []
+        take = PonderService.take
+
+        def take_and_keep(self, state):
+            trees = take(self, state)
+            taken.append((trees, None if trees is None
+                          else int(trees.node_n[0, 0]), self.last_wait))
+            return trees
+
+        PonderService.take = take_and_keep
+        try:
+            got, launches_p = gtp_session(
+                ["--gtp", "--ponder", "--num-rollout", str(SERVE_ROLLOUTS),
+                 "--seed", "0"],
+                ["clear_board", "play b q16", PONDER_WAIT, "genmove w",
+                 "quit"])
+        finally:
+            PonderService.take = take
+        check(len(taken) == 1 and taken[0][0] is not None,
+              "genmove did not take the pondered tree")
+        trees, pondered, wait = taken[0]
+        check(pondered > 1 and int(trees.node_n[0, 0])
+              == pondered + SERVE_ROLLOUTS,
+              f"pondered visits {pondered}, then "
+              f"{int(trees.node_n[0, 0])}")
+        check(launches_p["leaf_step"] >= pondered - 1 + SERVE_ROLLOUTS,
+              f"ponder session: launches {launches_p}")
+        ponder_lat = got[2][2]
+        phase("serve", t0, f"128x9 net, genmove at {SERVE_ROLLOUTS} "
+              f"rollouts median {statistics.median(lat100):.3f} s "
+              f"(min {min(lat100):.3f}, max {max(lat100):.3f}; "
+              f"{SERVE_GENMOVES} moves), at 1600 {lat1600:.3f} s, "
+              f"final_score {score_secs:.3f} s ({score} after "
+              f"{len(played) + 1} moves); launches {launches_a} / "
+              f"{launches_b}; sanity net: genmove median "
+              f"{statistics.median(sanity_lat):.3f} s, final_score "
+              f"{sanity_score:.3f} s, launches {launches_s}; ponder: "
+              f"{pondered} visits pondered in {PONDER_WAIT} s, take() "
+              f"waited {wait:.3f} s, genmove {ponder_lat:.3f} s, "
+              f"launches {launches_p}")
+
+        # 3. reanalyze at full width
+        t0 = time.monotonic()
+        with open(REANALYZE_FILE) as fh:
+            games = [next(fh).strip() for _ in range(REANALYZE_GAMES)]
+        path = f"{tmp}/games.sgf"
+        with open(path, "w") as fh:
+            fh.write("\n".join(games) + "\n")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, launches_r, wall = counted(lambda: cli.main(
+                ["--reanalyze", path, "--num-rollout", str(SERVE_ROLLOUTS),
+                 "--seed", "0"]))
+        check(rc == 0, f"reanalyze exited {rc}")
+        lines = out.getvalue().splitlines()
+        check(len(lines) == len(games), f"{len(lines)} lines reanalyzed of "
+              f"{len(games)}")
+        patched = 0
+        for line, before in zip(lines, games):
+            parsed, orig = sgf.parse_line(line), sgf.parse_line(before)
+            check(parsed is not None and len(parsed.moves) ==
+                  len(orig.moves), f"bad reanalyzed line: {line[:200]}")
+            for mv in parsed.moves:
+                if mv.num_rollout == SERVE_ROLLOUTS:
+                    patched += 1
+                    check(mv.policy is not None and mv.policy.shape == (362,)
+                          and np.isfinite(mv.policy).all(),
+                          f"bad patched move in {line[:200]}")
+        check(patched > 0 and launches_r["leaf_step"] >= SERVE_ROLLOUTS,
+              f"reanalyze: {patched} positions, launches {launches_r}")
+        phase("serve", t0, f"reanalyze of {len(games)} self-play games "
+              f"({REANALYZE_FILE}), 128x9 net, {SERVE_ROLLOUTS} "
+              f"rollouts: {patched} positions in {wall:.2f} s, "
+              f"{patched / wall:.2f} positions/s, launches {launches_r}")
+
+        # the CPU's answers and lines
+        t0 = time.monotonic()
+        host_answers, host_annotated = on_host.result()
+        check(answers == host_answers, "GTP answers on the card differ from "
+              "the CPU: " + "; ".join(
+                  f"{c!r}: {a.strip()!r} vs {b.strip()!r}" for c, a, b in
+                  zip(gtp_script(game), answers, host_answers) if a != b))
+        for name, a, b in zip(("reanalyze", "ex-it"), annotated,
+                              host_annotated):
+            check(a == b, f"{name} lines on the card differ from the CPU")
+        phase("serve", t0, f"card == cpu: {len(answers)} GTP answers "
+              f"(card {card_secs:.1f} s with reanalyze and ex-it of "
+              f"{len(annotated[0])} sample games, "
+              f"{SERVE_REF_ROLLOUTS} rollouts), waited "
+              f"{time.monotonic() - t0:.1f} s for the CPU")
+    phase("serve", t_phase, "GTP and reanalyze")
 
 
 # ---------------------------------------------------------------------------
@@ -1282,8 +1591,15 @@ def main() -> int:
     torch.cuda.set_device(dev)
     build_phase()
     errs, states, actions, env_states = parity_phase(dev)
-    reference_phase(dev)
-    launches = selfplay_phase(dev)
+    # the CPU sides of the card-against-CPU checks run in this process
+    # meanwhile (spawned: a forked child must not inherit CUDA)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=torch.set_num_threads,
+            initargs=(HOST_THREADS,)) as host:
+        reference_phase(dev, host)
+        launches = selfplay_phase(dev)
+        serve_phase(dev, host)
     _, bench_launches = bench_phase()
     launches["env_step"] = bench_launches["env_step"]
     sanity_phase(dev)

@@ -1,28 +1,40 @@
-"""Command-line front end of the port: self-play and the benchmark.
+"""Command-line front end of the port: GTP serving, self-play, reanalyze
+and the benchmark.
 
-    python -m dream_go_torch.cli --self-play N [--continuous] \\
+    python -m dream_go_torch.cli [--gtp] [--ponder] --num-rollout R \\
+        [--weights dream_go.json] [--device cuda|cpu] [--seed S]
+    python -m dream_go_torch.cli --self-play N [--continuous] [--ex-it] \\
         --num-rollout R --num-games B [--max-moves M] [--seed S] \\
         [--weights dream_go.json] [--device cuda|cpu] \\
         [--ladder-features | --no-ladder-features]
     python -m dream_go_torch.cli --policy-play N [...]
+    python -m dream_go_torch.cli --reanalyze FILE... [--ex-it] [...]
     python -m dream_go_torch.cli --bench [--device cuda|cpu] [bench flags]
 
-Self-play writes one SGF line per finished game to stdout, as
-`dream_go_tpu/cli.py:230-283` does: ``--continuous`` keeps a batch of
-``--num-games`` live games and refills finished slots; without it the
-games are played in lockstep batches of ``--num-games``, each to its last
-game's end; ``--policy-play N`` (or ``--num-rollout 1``) samples each move
-from the policy head without a search.  ``--bench`` runs
-:mod:`dream_go_torch.bench`, handing it ``--device`` and every argument
-this parser does not know (``--full``, ``--no-selfplay``, ...).  Without ``--weights`` the net is a
-seeded random tower at the ``ModelConfig`` width (128 x 9 unless
-``--num-channels``/``--num-blocks`` say otherwise).  Ladder planes 30/31
-follow the loaded net's input contract (its ``ladder_features:0`` tensor;
-off for a random net) unless ``--ladder-features``/``--no-ladder-features``
-say otherwise; on ``cuda`` they come from the exact ladder kernel, on
-``cpu`` from the greedy reader.  The fused leaf kernel and EARLY-C
-termination are on for ``cuda`` (``--no-fused`` and ``--no-adaptive`` turn
-them off).  On ``cpu`` the tower computes in float32.
+With no mode flag, or with ``--gtp``, the CLI serves GTP on stdin/stdout
+(`dream_go_tpu/cli.py:290-294`): every genmove searches ``--num-rollout``
+simulations at B=1 with EARLY-C off, and ``--ponder`` searches on in the
+background between commands.  Self-play writes one SGF line per finished
+game to stdout, as `dream_go_tpu/cli.py:230-283` does: ``--continuous``
+keeps a batch of ``--num-games`` live games and refills finished slots;
+without it the games are played in lockstep batches of ``--num-games``,
+each to its last game's end; ``--policy-play N`` (or ``--num-rollout 1``)
+samples each move from the policy head without a search.  ``--ex-it``
+re-searches ~5% of the positions whose recorded win rate is at most 0.8
+after self-play; ``--reanalyze`` re-searches ~5% of the positions of the
+games in the files (``--ex-it``: ex-it's positions instead), at
+``--num-rollout`` simulations, and writes the lines back out.  ``--bench``
+runs :mod:`dream_go_torch.bench`, handing it ``--device`` and every
+argument this parser does not know (``--full``, ``--no-selfplay``, ...).
+Without ``--weights`` the net is a seeded random tower at the
+``ModelConfig`` width (128 x 9 unless ``--num-channels``/``--num-blocks``
+say otherwise).  Ladder planes 30/31 follow the loaded net's input
+contract (its ``ladder_features:0`` tensor; off for a random net) unless
+``--ladder-features``/``--no-ladder-features`` say otherwise; on ``cuda``
+they come from the exact ladder kernel, on ``cpu`` from the greedy
+reader.  The fused leaf kernel and EARLY-C termination are on for ``cuda``
+(``--no-fused`` and ``--no-adaptive`` turn them off).  On ``cpu`` the
+tower computes in float32.
 """
 
 from __future__ import annotations
@@ -42,8 +54,18 @@ def build_parser() -> argparse.ArgumentParser:
                       help="generate N self-play games")
     mode.add_argument("--policy-play", type=int, metavar="N",
                       help="generate N policy-only games")
+    mode.add_argument("--reanalyze", nargs="+", metavar="FILE",
+                      help="re-annotate the games of SGF files")
     mode.add_argument("--bench", action="store_true",
                       help="run the benchmark (dream_go_torch.bench)")
+    mode.add_argument("--gtp", action="store_true",
+                      help="serve GTP on stdin/stdout (the default)")
+    parser.add_argument("--ponder", action="store_true",
+                        help="GTP: search on in the background between "
+                             "commands")
+    parser.add_argument("--ex-it", action="store_true",
+                        help="re-search ex-it positions after self-play; "
+                             "with --reanalyze, pick ex-it positions")
     parser.add_argument("--continuous", action="store_true",
                         help="continuous batching: finished games are "
                              "replaced by fresh ones; --num-games is the "
@@ -101,12 +123,22 @@ def load_predictor(args, device):
     return P.net_predictor(model, softmax_temp=args.softmax_temperature)
 
 
-def search_config(args, device) -> SearchConfig:
+def search_config(args, device, adaptive_ok: bool = True) -> SearchConfig:
+    """The search configuration of ``args`` for ``device``; GTP serving
+    passes ``adaptive_ok=False`` (no EARLY-C)."""
     cfg = SearchConfig(num_rollout=args.num_rollout,
                        ladder_features=bool(args.ladder_features),
                        fused=False if args.no_fused else None,
-                       adaptive=False if args.no_adaptive else None)
+                       adaptive=False if (args.no_adaptive or not adaptive_ok)
+                       else None)
     return cfg.resolve_auto(device)
+
+
+def _ex_it(args, lines, predictor, device, seed: int) -> list[str]:
+    from .selfplay.reanalyze import ex_it
+
+    return ex_it(lines, predictor, search_config(args, device),
+                 num_sims=args.num_rollout, seed=seed, device=device)
 
 
 def _selfplay_config(args, num_games: int) -> SelfPlayConfig:
@@ -121,11 +153,14 @@ def self_play(args, stats: dict | None = None) -> list[str]:
 
     device = torch.device(args.device)
     predictor = load_predictor(args, device)
-    return search_self_play_continuous(
+    lines = search_self_play_continuous(
         predictor, _selfplay_config(args, args.self_play),
         search_config(args, device), seed=args.seed,
         batch=min(args.self_play, args.num_games), stats=stats,
         device=device)
+    if args.ex_it:
+        lines = _ex_it(args, lines, predictor, device, args.seed)
+    return lines
 
 
 def batched_play(args):
@@ -151,9 +186,38 @@ def batched_play(args):
             games = search_self_play(
                 predictor, cfg, search_config(args, device),
                 seed=args.seed + done, device=device)
+        if args.ex_it:
+            games = _ex_it(args, games, predictor, device, args.seed + done)
         yield from games
         done += n
         print("." * n, file=sys.stderr, flush=True)
+
+
+def reanalyze(args) -> list[str]:
+    """``--reanalyze FILE...``: the re-annotated lines of every file."""
+    from .selfplay.reanalyze import ex_it, reanalyze as run_reanalyze
+
+    device = torch.device(args.device)
+    predictor = load_predictor(args, device)
+    lines = []
+    for path in args.reanalyze:
+        with open(path) as fh:
+            lines.extend(line.strip() for line in fh if line.strip())
+    fn = ex_it if args.ex_it else run_reanalyze
+    return fn(lines, predictor, search_config(args, device),
+              num_sims=args.num_rollout, seed=args.seed, device=device)
+
+
+def serve(args) -> None:
+    """GTP on stdin/stdout until ``quit``."""
+    from .gtp import GtpEngine, run_server
+
+    device = torch.device(args.device)
+    predictor = load_predictor(args, device)
+    run_server(GtpEngine(predictor, search_config(args, device,
+                                                  adaptive_ok=False),
+                         num_rollout=args.num_rollout, ponder=args.ponder,
+                         seed=args.seed, device=device))
 
 
 def main(argv=None):
@@ -165,14 +229,15 @@ def main(argv=None):
         return bench.main(["--device", args.device] + rest)
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.self_play and args.continuous and args.num_rollout > 1:
+    if args.reanalyze:
+        lines = reanalyze(args)
+    elif args.self_play and args.continuous and args.num_rollout > 1:
         lines = self_play(args)
     elif args.self_play or args.policy_play:
         lines = batched_play(args)
     else:
-        print("dream_go_torch: give --self-play N, --policy-play N or "
-              "--bench (GTP serving is not ported yet)", file=sys.stderr)
-        return 2
+        serve(args)
+        return 0
     for line in lines:
         print(line, flush=True)
     return 0

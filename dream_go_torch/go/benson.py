@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from .engine import BLACK, EMPTY, WHITE, GoState, gather_nbr, pad, tables
-from .score import CHECK_EVERY, territory
+from .score import CHECK_EVERY, territory, tt_score
 from .topology import NN
 
 
@@ -81,10 +81,17 @@ def benson(stones: torch.Tensor, chain_id: torch.Tensor, color):
     return alive, eye
 
 
-def is_scorable(state: GoState) -> torch.Tensor:
-    """bool[B]: every point is Benson-decided (`score.rs:105-117`)."""
-    alive_b, eye_b = benson(state.stones, state.chain_id, BLACK)
-    alive_w, eye_w = benson(state.stones, state.chain_id, WHITE)
+def life(state: GoState):
+    """``(alive_b, eye_b, alive_w, eye_w)``: :func:`benson` for black, then
+    white."""
+    return (*benson(state.stones, state.chain_id, BLACK),
+            *benson(state.stones, state.chain_id, WHITE))
+
+
+def is_scorable(state: GoState, life_=None) -> torch.Tensor:
+    """bool[B]: every point is Benson-decided (`score.rs:105-117`);
+    ``life_`` is the state's :func:`life`, computed when not given."""
+    alive_b, eye_b, alive_w, eye_w = life_ or life(state)
     st = state.stones
     ok = torch.where(
         st == EMPTY, eye_b | eye_w,
@@ -99,6 +106,16 @@ def clear_dead(stones: torch.Tensor, chain_id: torch.Tensor) -> torch.Tensor:
     alive_w, _ = benson(stones, chain_id, WHITE)
     keep = ((stones == BLACK) & alive_b) | ((stones == WHITE) & alive_w)
     return torch.where(keep, stones, 0)
+
+
+def guess_score(finished_stones: torch.Tensor,
+                finished_chain_id: torch.Tensor,
+                komi: torch.Tensor) -> torch.Tensor:
+    """f32[B]: Tromp-Taylor score of the boards with the Benson-dead stones
+    cleared, black minus white minus komi (`score.rs:141-147`
+    ``get_guess_score``)."""
+    black, white = tt_score(clear_dead(finished_stones, finished_chain_id))
+    return black.to(torch.float32) - white.to(torch.float32) - komi
 
 
 STATUS_NONE, STATUS_ALIVE, STATUS_DEAD, STATUS_SEKI = 0, 1, 2, 3

@@ -12,8 +12,8 @@ import functools
 import numpy as np
 import torch
 
-from .benson import benson
-from .engine import BLACK, WHITE, GoState, legal_mask, pad
+from .benson import life
+from .engine import GoState, legal_mask, pad
 from .topology import NBR8, NN
 
 _X = np.arange(NN) % 19
@@ -46,11 +46,11 @@ def eye_heuristic(state: GoState, color=None) -> torch.Tensor:
     return (num_cross >= cross_need) & (num_diag >= diag_need)
 
 
-def scoring_mask(state: GoState) -> torch.Tensor:
-    """bool[B, 362]: ScoringSearch candidates (pass always False)."""
+def scoring_mask(state: GoState, life_=None) -> torch.Tensor:
+    """bool[B, 362]: ScoringSearch candidates (pass always False);
+    ``life_`` is the state's ``benson.life``, computed when not given."""
     legal = legal_mask(state)
-    _, eye_b = benson(state.stones, state.chain_id, BLACK)
-    _, eye_w = benson(state.stones, state.chain_id, WHITE)
+    _, eye_b, _, eye_w = life_ or life(state)
     moves = legal[:, :NN] & ~eye_b & ~eye_w & ~eye_heuristic(state)
     return torch.cat([moves, torch.zeros_like(moves[:, :1])], dim=1)
 

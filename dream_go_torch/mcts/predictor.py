@@ -81,6 +81,18 @@ def random_predictor(noise: float = 0.0,
     return Predictor(predict)
 
 
+def nan_predictor() -> Predictor:
+    """All-NaN outputs, for the search's numerical-fault path
+    (`predictors/nan.rs`)."""
+    def predict(feats):
+        b = feats.shape[0]
+        nan = float("nan")
+        return (torch.full((b,), nan, device=feats.device),
+                torch.full((b, 362), nan, device=feats.device))
+
+    return Predictor(predict)
+
+
 def symmetrize(predict: Predictor) -> Predictor:
     """8-symmetry averaged evaluation (`lib.rs:83-130` full_forward): each
     D8 transform of the NHWC features, one predictor call on the 8B batch,

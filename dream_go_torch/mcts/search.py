@@ -576,6 +576,25 @@ def search_done(trees: Tree, sims_remaining: torch.Tensor) -> torch.Tensor:
     return (best[:, 0] - torch.clamp(second, min=0)) > sims_remaining
 
 
+UNSTABLE_MARGIN = 0.005
+
+
+def search_unstable(trees: Tree) -> torch.Tensor:
+    """UNST-N (`time_control/byo_yomi.rs:177-192` ``is_stable``, negated):
+    bool[B], the most visited root child is not the highest-valued one and
+    trails it by at least ``UNSTABLE_MARGIN``.  Time-managed play extends
+    the search while this holds."""
+    visits = root_visits(trees)
+    valid = visits > 0
+    qv = torch.where(valid, root_q(trees), NEG_INF)
+    top_visits = torch.argmax(torch.where(valid, visits, -1), 1)
+    top_value = torch.argmax(qv, 1)
+    gap = qv.gather(1, top_value[:, None])[:, 0] \
+        - qv.gather(1, top_visits[:, None])[:, 0]
+    return (top_visits != top_value) & (gap >= UNSTABLE_MARGIN) \
+        & valid.any(1)
+
+
 def run_search_adaptive(trees: Tree, predictor, cfg: SearchConfig,
                         num_sims: int,
                         use_scoring: torch.Tensor | None = None,

@@ -431,3 +431,37 @@ def test_env_step_rejects_bad_inputs(cuda_device):
     short = engine.new_states(2, history_len=32, device=cuda_device)
     with pytest.raises(ValueError):
         E.env_step_states(short, w, 0)
+
+
+# ---------------------------------------------------------------------------
+# GTP serving and reanalyze
+
+
+@pytest.mark.cuda
+def test_gtp_and_reanalyze_on_the_card_equal_the_cpu(cuda_device, tmp_path):
+    """`chip_smoke.gtp_script` (deterministic predictor, 16 rollouts, no
+    noise) gives the same answers on the card (leaf_step at every leaf)
+    as on the CPU, and a reanalyzed sample game is the same line."""
+    import re
+
+    import chip_smoke as C
+    from dream_go_torch.config import SearchConfig
+    from dream_go_torch.gtp import GtpEngine
+    from dream_go_torch.selfplay import reanalyze as RA
+
+    game = tmp_path / "game.sgf"
+    game.write_text(C.sample_lines()[2] + "\n")
+    before = L.launches
+    answers = [C.gtp_answers(GtpEngine(
+        C.det_predictor(), SearchConfig(dirichlet_noise=0.0),
+        num_rollout=16, device=dev), C.gtp_script(str(game)))
+        for dev in (cuda_device, "cpu")]
+    assert L.launches - before >= 5 * 16
+    assert answers[0] == answers[1]
+    lines = [RA.reanalyze(C.sample_lines()[2:], C.det_predictor(),
+                          SearchConfig(dirichlet_noise=0.0, adaptive=False),
+                          num_sims=16, device=dev)
+             for dev in (cuda_device, "cpu")]
+    card, host = [[re.sub(r"DT\[[^\]]*\]", "", x) for x in ls]
+                  for ls in lines]
+    assert card == host and "TV[16]" in card[0]
