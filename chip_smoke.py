@@ -47,7 +47,8 @@ Phases, in order, each printed with its seconds:
 4. reference: small self-play runs on the card (kernels) and on the CPU
    (plain versions) with a deterministic predictor give the same games:
    planes off, planes on (fused), planes on with the feature kernel
-   (unfused), and unfused leaves stepped by the env-step kernel; then one
+   (unfused), unfused leaves stepped by the env-step kernel, and the V2
+   plane set (unfused, the predictor on 18 planes); then one
    deep search, 400 rollouts from 8 boards, whose trees on the card and
    on the CPU are equal in every field.  The CPU sides of this phase and
    of the serve phase run in a spawned process of their own while the
@@ -81,6 +82,18 @@ Phases, in order, each printed with its seconds:
      the rl20 run at 100 rollouts (every line parses, every patched
      move carries ``TV[100]`` and a 362-entry policy); genmove latency,
      final_score seconds, take()'s wait and positions/s are logged;
+   - the trainer (the train phase) through ``cli.main`` at the CLI's
+     defaults (128 x 9, B = 2048, banks of 1024 games x 8 positions):
+     ``--start models/rl20/gen_0000.sgf --steps 20 --ladder-features``
+     (the bank's planes from the feature and ladder kernels, its host
+     side from the native loader), ``--resume`` on ``gen_0001.sgf`` for 5
+     steps, ``--verify`` on ``gen_0047.sgf``, ``--dump``, then two
+     16-rollout genmoves served from the dumped weights (the leaf and
+     ladder kernels); every loss finite, one metrics line a step; the
+     bank's seconds, the median ms of a step and examples/s logged; then
+     one float32 train step at 128 x 9, B = 64, on the card against the
+     CPU's (losses, gradients, running statistics, parameters after Adam,
+     each within its stated limit);
    - the benchmark entry, ``dream_go_torch.bench.main`` in this process
      with ``--full`` and two cuts, ``--selfplay-rollouts 64
      --selfplay-window 60``: the env stage (4096 boards, 151 env-step
@@ -153,6 +166,33 @@ BENCH_ARGS = ["--device", "cuda", "--full", "--selfplay-rollouts", "64",
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "mcts_sims_per_sec",
               "selfplay_games_per_sec", "selfplay_vs_reference",
               "selfplay_rate_mode", "selfplay_batch", "selfplay_sims_per_sec")
+#: the train phase: three generations of the rl20 run (256 self-play games
+#: each), the CLI's defaults cut in steps; the dumped weights then serve
+#: genmoves
+TRAIN_DATA = ("models/rl20/gen_0000.sgf", "models/rl20/gen_0001.sgf",
+              "models/rl20/gen_0047.sgf")
+TRAIN_DIR = "build/smoke"
+TRAIN_STEPS, RESUME_STEPS = 20, 5
+TRAIN_GENMOVES, TRAIN_ROLLOUTS = 2, 16
+#: one float32 train step, card against CPU (TF32 off), 128 x 9 at
+#: B = 64: the losses, relative (float32 sums over 64 examples in other
+#: orders); the gradients, relative in L2 norm over all tensors and in
+#: each tensor of 128 entries or more: float32 itself is that far from
+#: exact at this depth, as training-mode batch norm's backward subtracts
+#: the batch's mean gradient and a relu near 0 may flip (float32 against
+#: float64 on the CPU, same weights and batch: 4.6e-3 in all, at most
+#: 5.8e-3 in a tensor of 128 or more, 0.12 in a scalar alpha); the
+#: running statistics, relative and absolute (a running mean
+#: after one step is 0.01 of a batch mean, which may lie near 0); and the
+#: parameters after
+#: Adam, whose first step moves a weight by ~lr * sign(g), so a gradient
+#: near zero whose sign differs in its last bits moves it by up to 2 lr
+#: (1% more for the decay and the max-norm rescale that follow)
+STEP_REF_BATCH = 64
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL, STEP_TENSOR_RTOL, STEP_GRAD_MIN_NUMEL = 2e-2, 5e-2, 128
+STEP_STATS_RTOL, STEP_STATS_ATOL = 1e-4, 1e-6
+STEP_ADAM_ATOL = 2 * 3e-4 * 1.01
 #: the plain ladder reader runs B=1024 in chunks of this many boards
 LADDER_CHUNK = 256
 TIMING_BATCH = 256
@@ -701,7 +741,7 @@ def parity_phase(dev):
 def det_predictor():
     """A deterministic predictor whose policy and value are dyadic numbers
     (float32 sums of them are exact in any order), so the search decisions
-    do not depend on where it runs."""
+    do not depend on where it runs; it takes V1's 32 planes or V2's 18."""
     from dream_go_torch.mcts.predictor import Predictor
 
     w = torch.from_numpy(
@@ -709,7 +749,8 @@ def det_predictor():
 
     def predict(feats):
         bits = (feats > 0.5).to(torch.int32)
-        h = (bits * w.to(feats.device)).sum(dim=(1, 2, 3))
+        h = (bits * w[..., :feats.shape[-1]].to(feats.device)).sum(
+            dim=(1, 2, 3))
         a = torch.arange(362, dtype=torch.int32, device=feats.device)
         k = (h[:, None] * 31 + a[None, :] * 17) % 251 + 1
         return ((h % 200) + 28).float() / 256.0, k.float() / 4096.0
@@ -726,7 +767,8 @@ REF_VARIANTS = [
     ("planes on, unfused, feature kernel",
      dict(fused=False, feature_kernel=True, ladder_features=True,
           ladders_exact=True)),
-    ("unfused, step kernel", dict(fused=False, step_kernel=True))]
+    ("unfused, step kernel", dict(fused=False, step_kernel=True)),
+    ("V2, unfused", dict(fused=False, feature_set="v2"))]
 
 
 def reference_selfplay(kw, device) -> list[str]:
@@ -763,7 +805,7 @@ def reference_phase(dev, host):
     on_host = [host.submit(reference_selfplay, kw, "cpu")
                for _, kw in REF_VARIANTS]
     host_trees = host.submit(production_trees, "cpu")
-    for (name, kw), kernel, cpu in zip(REF_VARIANTS, (None, LK, LA, E),
+    for (name, kw), kernel, cpu in zip(REF_VARIANTS, (None, LK, LA, E, None),
                                        on_host):
         before = kernel.launches if kernel else 0
         card = reference_selfplay(kw, dev)
@@ -1226,7 +1268,210 @@ def serve_phase(dev, host):
 
 
 # ---------------------------------------------------------------------------
-# 5b. the benchmark entry
+# 5b. the trainer
+
+
+def train_step_reference(device, sd, feats, labels):
+    """One float32 train step of a 128 x 9 ``TrainTower`` holding ``sd``,
+    on ``feats`` and ``labels``, on ``device``: ``(metrics, gradients,
+    state_dict after the step)``, on the CPU."""
+    from dream_go_torch.config import ModelConfig, TrainConfig
+    from dream_go_torch.models import tower as T
+    from dream_go_torch.train import train_loop as TL
+
+    model = T.TrainTower(ModelConfig(compute_dtype="float32"))
+    model.load_state_dict(sd)
+    model.to(device).train()
+    tcfg = TrainConfig(batch_size=feats.shape[0])
+    metrics = TL.train_step(
+        model, TL.make_optimizer(model, tcfg.initial_lr), tcfg,
+        feats.to(device), {k: v.to(device) for k, v in labels.items()},
+        tcfg.initial_lr)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.grad.cpu() for k, p in model.named_parameters()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def train_step_parity(dev, host):
+    """The card's float32 train step (TF32 off) against the CPU's (in
+    ``host``, a process of its own) from the same weights and batch:
+    losses within ``STEP_LOSS_RTOL``, accuracies within one example,
+    the gradients within ``STEP_GRAD_RTOL`` in L2 norm over all tensors
+    and within ``STEP_TENSOR_RTOL`` in each tensor of at least
+    ``STEP_GRAD_MIN_NUMEL`` entries,
+    the new running statistics within ``STEP_STATS_RTOL`` and
+    ``STEP_STATS_ATOL``, and the
+    parameters after Adam within ``STEP_ADAM_ATOL``."""
+    import math
+
+    from dream_go_torch.config import ModelConfig
+    from dream_go_torch.models import tower as T
+    from dream_go_torch.train.pipeline import ExampleSource
+
+    t0 = time.monotonic()
+    with open(REANALYZE_FILE) as fh:
+        lines = [line.strip() for line in fh if line.strip()]
+    src = ExampleSource(lines, STEP_REF_BATCH, seed=0, positions_per_game=8,
+                        bank_games=8, device=dev)
+    feats, labels = next(iter(src.batches(1)))
+    feats, labels = feats.cpu(), {k: v.cpu() for k, v in labels.items()}
+    sd = T.init_train_tower(ModelConfig(), seed=3, device="cpu").state_dict()
+    on_host = host.submit(train_step_reference, "cpu", sd, feats, labels)
+    card = train_step_reference(dev, sd, feats, labels)
+    host_out = on_host.result()
+    gaps = {}
+    for k, v in host_out[0].items():
+        if k.startswith("loss"):
+            gaps[k] = abs(card[0][k] - v) / abs(v)
+            check(gaps[k] <= STEP_LOSS_RTOL, f"train step {k}: card "
+                  f"{card[0][k]!r}, cpu {v!r}")
+        else:
+            check(abs(card[0][k] - v) <= 1.0 / STEP_REF_BATCH + 1e-6,
+                  f"train step {k}: card {card[0][k]!r}, cpu {v!r}")
+    diff = {k: float((a - host_out[1][k]).norm()) for k, a in card[1].items()}
+    norm = {k: float(g.norm()) for k, g in host_out[1].items()}
+    grad_gap = math.sqrt(sum(d * d for d in diff.values())
+                         / sum(n * n for n in norm.values()))
+    worst = max((diff[k] / max(norm[k], 1e-30), k) for k in diff
+                if card[1][k].numel() >= STEP_GRAD_MIN_NUMEL)
+    check(grad_gap <= STEP_GRAD_RTOL and worst[0] <= STEP_TENSOR_RTOL,
+          f"train step gradients off by {grad_gap:.3e} in all, "
+          f"{worst[0]:.3e} in {worst[1]}")
+    stats_gap = adam_gap = 0.0
+    for k, a in card[2].items():
+        b = host_out[2][k]
+        if k.endswith((".mean", ".var")):
+            stats_gap = max(stats_gap, float(
+                ((a - b).abs() - STEP_STATS_RTOL * b.abs()).max()))
+        else:
+            adam_gap = max(adam_gap, float((a - b).abs().max()))
+    check(stats_gap <= STEP_STATS_ATOL, f"running statistics off by "
+          f"{stats_gap:.3e} beyond {STEP_STATS_RTOL} of their value")
+    check(adam_gap <= STEP_ADAM_ATOL, f"parameters off by {adam_gap:.3e}")
+    phase("train", t0, f"card == cpu, one float32 train step at 128 x 9, "
+          f"B={STEP_REF_BATCH}: loss {card[0]['loss']:.6f} vs "
+          f"{host_out[0]['loss']:.6f}, relative loss gaps "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f"; gradients {grad_gap:.2e} in all (limit {STEP_GRAD_RTOL}), "
+          f"{worst[0]:.2e} in {worst[1]} (limit {STEP_TENSOR_RTOL}); running statistics {stats_gap:.2e} beyond "
+          f"{STEP_STATS_RTOL} of their value (limit {STEP_STATS_ATOL}); "
+          f"parameters after Adam {adam_gap:.2e} "
+          f"(limit {STEP_ADAM_ATOL})")
+
+
+def train_phase(dev, host):
+    """The trainer at the CLI's defaults (128 x 9, B = 2048, 8 positions
+    a game, a bank of 1024 games) through ``cli.main``: ``--start`` (with
+    planes 30/31), ``--resume``, ``--verify`` and ``--dump`` on three
+    generations of the rl20 run, then genmoves served from the dumped
+    weights; each run with the kernels' launch counts and the native
+    loader's calls zeroed before and read after.  Then one train step on
+    the card against the CPU's."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import statistics
+
+    from dream_go_torch import cli, native
+    from dream_go_torch.models import params as MP
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, TRAIN_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    ckpt, metrics, weights = (os.path.join(out, name) for name in
+                              ("ckpt", "metrics.jsonl", "dream_go.json"))
+    start, resume, verify = (os.path.join(root, p) for p in TRAIN_DATA)
+
+    def run(name, argv):
+        """``cli.main(argv)``: its stdout, its bank's seconds and
+        launches; the lines it wrote to stderr are logged."""
+        t0 = time.monotonic()
+        stdout, stderr = io.StringIO(), io.StringIO()
+        native.calls = 0
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            rc, launches, wall = counted(lambda: cli.main(argv))
+        check(rc == 0, f"{name}: cli.main exited {rc}")
+        for line in stderr.getvalue().splitlines():
+            log(f"  {name}: {line}")
+        banks = [float(m) for m in re.findall(
+            r"example bank: \d+ examples of \d+ games in ([\d.]+) s",
+            stderr.getvalue())]
+        phase("train", t0, f"{name}: {wall:.2f} s, launches {launches}, "
+              f"native loader calls {native.calls}")
+        return stdout.getvalue(), banks, launches, native.calls
+
+    def steps_of(records):
+        """Median ms between successive steps of one run."""
+        t = [r["time"] for r in records]
+        return 1e3 * statistics.median(b - a for a, b in zip(t, t[1:]))
+
+    args = cli.build_parser().parse_args(["--start", start])
+    check((args.num_channels, args.num_blocks, args.batch_size,
+           args.positions_per_game, args.bank_games) ==
+          (128, 9, 2048, 8, 1024), "the train phase runs the CLI defaults")
+    _, bank_start, launches, calls = run("--start", [
+        "--start", start, "--steps", str(TRAIN_STEPS), "--ladder-features",
+        "--checkpoint", ckpt, "--metrics", metrics, "--seed", "0"])
+    check(launches["ladder_planes"] > 0 and
+          launches["board_features_raw"] > 0,
+          f"the bank build did not launch K2 and K3: {launches}")
+    check(calls > 0, "the native loader was not used")
+    _, bank_resume, launches_r, calls_r = run("--resume", [
+        "--resume", resume, "--steps", str(RESUME_STEPS),
+        "--checkpoint", ckpt, "--metrics", metrics, "--seed", "1"])
+    check(launches_r["ladder_planes"] > 0 and calls_r > 0,
+          f"--resume: launches {launches_r}, native calls {calls_r}")
+    with open(metrics) as fh:
+        records = [json.loads(line) for line in fh]
+    total = TRAIN_STEPS + RESUME_STEPS
+    check([r["step"] for r in records] == list(range(1, total + 1)),
+          f"metrics steps {[r['step'] for r in records]}")
+    check(all(math.isfinite(r[k]) for r in records for k in r),
+          "a non-finite metric")
+    verified, bank_verify, launches_v, _ = run("--verify", [
+        "--verify", verify, "--checkpoint", ckpt, "--seed", "2"])
+    verified = json.loads(verified)
+    check(all(math.isfinite(v) for v in verified.values()),
+          f"--verify: {verified}")
+    dumped, _, _, _ = run("--dump", ["--dump", "--checkpoint", ckpt])
+    with open(weights, "w") as fh:
+        fh.write(dumped)
+    cfg, _ = MP.load_json(dumped)
+    check((cfg.num_channels, cfg.num_blocks, cfg.ladder_features) ==
+          (128, 9, True), f"the dumped net is {cfg}")
+    t0 = time.monotonic()
+    got, launches_g = gtp_session(
+        ["--gtp", "--num-rollout", str(TRAIN_ROLLOUTS), "--seed", "0",
+         "--weights", weights],
+        ["clear_board"] + [f"genmove {'bw'[i % 2]}"
+                           for i in range(TRAIN_GENMOVES)] + ["quit"])
+    check(launches_g["leaf_step"] >= TRAIN_ROLLOUTS * TRAIN_GENMOVES
+          and launches_g["ladder_planes"] > 0,
+          f"genmoves from the dumped weights: launches {launches_g}")
+    phase("train", t0, f"the dumped weights serve: "
+          f"{[t for c, t, _ in got if c.startswith('genmove')]}, "
+          f"launches {launches_g}")
+    ms = [steps_of(records[:TRAIN_STEPS]), steps_of(records[TRAIN_STEPS:])]
+    phase("train", t_phase, f"128x9, B=2048, banks of 1024 games x 8 "
+          f"positions built in {bank_start + bank_resume + bank_verify} s; "
+          f"a step {ms[0]:.2f} ms (--start, median of {TRAIN_STEPS - 1}), "
+          f"{ms[1]:.2f} ms (--resume, median of {RESUME_STEPS - 1}): "
+          f"{2048e3 / ms[0]:.0f} / {2048e3 / ms[1]:.0f} examples/s; loss "
+          f"{records[0]['loss']:.4f} at step 1, "
+          f"{records[TRAIN_STEPS - 1]['loss']:.4f} at {TRAIN_STEPS}, "
+          f"{records[-1]['loss']:.4f} at {total}; --verify loss "
+          f"{verified['loss']:.4f}, top1 {verified['policy_top1']:.4f}; "
+          f"launches --start {launches}, --resume {launches_r}, --verify "
+          f"{launches_v}")
+    train_step_parity(dev, host)
+
+
+# ---------------------------------------------------------------------------
+# 5c. the benchmark entry
 
 
 def bench_phase():
@@ -1600,6 +1845,7 @@ def main() -> int:
         reference_phase(dev, host)
         launches = selfplay_phase(dev)
         serve_phase(dev, host)
+        train_phase(dev, host)
     _, bench_launches = bench_phase()
     launches["env_step"] = bench_launches["env_step"]
     sanity_phase(dev)

@@ -1,5 +1,5 @@
-"""Command-line front end of the port: GTP serving, self-play, reanalyze
-and the benchmark.
+"""Command-line front end of the port: GTP serving, self-play, reanalyze,
+the benchmark and the trainer.
 
     python -m dream_go_torch.cli [--gtp] [--ponder] --num-rollout R \\
         [--weights dream_go.json] [--device cuda|cpu] [--seed S]
@@ -10,6 +10,14 @@ and the benchmark.
     python -m dream_go_torch.cli --policy-play N [...]
     python -m dream_go_torch.cli --reanalyze FILE... [--ex-it] [...]
     python -m dream_go_torch.cli --bench [--device cuda|cpu] [bench flags]
+    python -m dream_go_torch.cli --start DATA --steps N [--checkpoint CKPT] \
+        [--metrics FILE] [--ladder-features] [--batch-size B] \
+        [--positions-per-game K] [--bank-games G] [--seed S]
+    python -m dream_go_torch.cli --resume DATA --checkpoint CKPT --steps N
+    python -m dream_go_torch.cli --verify DATA --checkpoint CKPT
+    python -m dream_go_torch.cli --dump --checkpoint CKPT > dream_go.json
+    python -m dream_go_torch.cli --print [TENSOR...] \
+        (--weights dream_go.json | --checkpoint CKPT)
 
 With no mode flag, or with ``--gtp``, the CLI serves GTP on stdin/stdout
 (`dream_go_tpu/cli.py:290-294`): every genmove searches ``--num-rollout``
@@ -35,6 +43,24 @@ they come from the exact ladder kernel, on ``cpu`` from the greedy
 reader.  The fused leaf kernel and EARLY-C termination are on for ``cuda``
 (``--no-fused`` and ``--no-adaptive`` turn them off).  On ``cpu`` the
 tower computes in float32.
+
+The trainer procedures are those of `dream_go_tpu/cli.py:326-420`:
+``--start DATA`` trains a fresh ``--num-channels`` x ``--num-blocks`` net
+(its policy bias seeded from the data's move frequencies) for ``--steps``
+steps on the games of the big-SGF file DATA and saves it to
+``--checkpoint``; ``--resume DATA`` continues the checkpoint on DATA;
+``--verify DATA`` prints the checkpoint's mean metrics over 32 batches of
+DATA as one JSON line (both read planes 30/31 as the checkpoint's net
+was trained, unless ``--ladder-features``/``--no-ladder-features`` say
+otherwise); ``--dump`` prints its weights JSON (BN folded, the
+EMA's parameters); ``--print`` prints every tensor's mean and standard
+deviation of a weights file or checkpoint, or the values of the named
+tensors.  Batches of ``--batch-size`` examples come from an example bank of
+``--bank-games`` replayed games, ``--positions-per-game`` positions each
+(``--bank-games 0``: fresh games every batch); ``--metrics`` appends one
+JSON line a step.  On ``cuda`` the tower trains in bf16 with float32
+parameters, and the bank's planes come from the feature and ladder
+kernels.
 """
 
 from __future__ import annotations
@@ -60,6 +86,29 @@ def build_parser() -> argparse.ArgumentParser:
                       help="run the benchmark (dream_go_torch.bench)")
     mode.add_argument("--gtp", action="store_true",
                       help="serve GTP on stdin/stdout (the default)")
+    mode.add_argument("--start", metavar="DATA",
+                      help="train a fresh net on a big-SGF file")
+    mode.add_argument("--resume", metavar="DATA",
+                      help="continue --checkpoint on a big-SGF file")
+    mode.add_argument("--verify", metavar="DATA",
+                      help="mean metrics of --checkpoint on a big-SGF file")
+    mode.add_argument("--dump", action="store_true",
+                      help="print the weights JSON of --checkpoint")
+    mode.add_argument("--print", dest="print_tensors", nargs="*",
+                      metavar="TENSOR",
+                      help="print each tensor's mean and std (no names) or "
+                           "the named tensors' values of --weights or "
+                           "--checkpoint")
+    parser.add_argument("--checkpoint", help="trainer checkpoint file")
+    parser.add_argument("--metrics", metavar="FILE",
+                        help="append training metrics JSONL to FILE")
+    parser.add_argument("--steps", type=int, default=1000)
+    parser.add_argument("--batch-size", type=int, default=2048)
+    parser.add_argument("--positions-per-game", type=int, default=8,
+                        help="training examples drawn per replayed game")
+    parser.add_argument("--bank-games", type=int, default=1024,
+                        help="games replayed into the example bank (0: "
+                             "fresh games every batch)")
     parser.add_argument("--ponder", action="store_true",
                         help="GTP: search on in the background between "
                              "commands")
@@ -220,6 +269,91 @@ def serve(args) -> None:
                          seed=args.seed, device=device))
 
 
+def print_tensors(args) -> str:
+    """``--print``: a JSON map ``{name: {mean, std}}`` of every tensor of
+    the weights (``--weights`` or the dump of ``--checkpoint``), or the
+    named tensors' values, one line each (`__main__.py:246-268`)."""
+    import json
+
+    import numpy as np
+
+    from .models import params as MP
+
+    if args.weights:
+        with open(args.weights) as fh:
+            tensors = MP.decode_raw(fh.read())
+    elif args.checkpoint:
+        from .train.train_loop import Trainer
+
+        tensors = MP.decode_raw(
+            Trainer.restore(args.checkpoint, device=args.device).dump_json())
+    else:
+        raise SystemExit("--print needs --weights or --checkpoint")
+    if not args.print_tensors:
+        return json.dumps({name: {"mean": float(np.mean(v)),
+                                  "std": float(np.std(v))}
+                           for name, v in tensors.items()},
+                          sort_keys=True, indent=4, separators=(",", ": "))
+    return "\n".join(f"{name} {tensors[name].tolist()}"
+                     for name in args.print_tensors)
+
+
+def trainer_procedures(args) -> list[str]:
+    """``--start``, ``--resume``, ``--verify`` and ``--dump``: the lines to
+    print (the metrics or the weights JSON); progress goes to stderr."""
+    import json
+    import time
+
+    from .config import TrainConfig
+    from .train.pipeline import ExampleSource
+    from .train.train_loop import Trainer, policy_bias_from_lines
+
+    device = torch.device(args.device)
+    tcfg = TrainConfig(batch_size=args.batch_size)
+    data_path = args.start or args.resume or args.verify
+    lines = None
+    if data_path:
+        with open(data_path) as fh:
+            lines = [line.strip() for line in fh if line.strip()]
+    if (args.resume or args.verify or args.dump) and args.checkpoint:
+        trainer = Trainer.restore(args.checkpoint, tcfg, device)
+        if args.ladder_features is None:
+            args.ladder_features = trainer.model_cfg.ladder_features
+    else:
+        if args.ladder_features is None:
+            args.ladder_features = ModelConfig.ladder_features
+        mcfg = ModelConfig(num_channels=args.num_channels,
+                           num_blocks=args.num_blocks,
+                           num_samples=args.num_samples,
+                           ladder_features=args.ladder_features)
+        bias = policy_bias_from_lines(lines[:2048]) if lines else None
+        trainer = Trainer.create(mcfg, tcfg, seed=args.seed,
+                                 policy_bias=bias, device=device)
+    if args.dump:
+        return [trainer.dump_json()]
+
+    source = ExampleSource(lines, batch_size=args.batch_size, seed=args.seed,
+                           ladder_features=args.ladder_features,
+                           positions_per_game=args.positions_per_game,
+                           bank_games=args.bank_games, device=device)
+    if args.bank_games:
+        t0 = time.monotonic()
+        feats, _ = source.build_bank()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"example bank: {feats.shape[0]} examples of "
+              f"{args.bank_games} games in {time.monotonic() - t0:.3f} s",
+              file=sys.stderr, flush=True)
+    if args.verify:
+        return [json.dumps(trainer.evaluate(source, num_batches=32))]
+    trainer.fit(source, num_steps=args.steps,
+                log_fn=lambda msg: print(msg, file=sys.stderr, flush=True),
+                metrics_path=args.metrics)
+    if args.checkpoint:
+        trainer.save(args.checkpoint)
+    return []
+
+
 def main(argv=None):
     parser = build_parser()
     args, rest = parser.parse_known_args(argv)
@@ -229,7 +363,11 @@ def main(argv=None):
         return bench.main(["--device", args.device] + rest)
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.reanalyze:
+    if args.print_tensors is not None:
+        lines = [print_tensors(args)]
+    elif args.start or args.resume or args.verify or args.dump:
+        lines = trainer_procedures(args)
+    elif args.reanalyze:
         lines = reanalyze(args)
     elif args.self_play and args.continuous and args.num_rollout > 1:
         lines = self_play(args)

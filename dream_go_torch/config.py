@@ -1,8 +1,9 @@
 """Search, self-play and model configuration.
 
 Port of `dream_go_tpu/config.py` (``Schedule``, ``SearchConfig``,
-``SelfPlayConfig``, ``ModelConfig``), with the fields the port's code
-reads; the others (ex-it, ...) come with the code that reads them.
+``SelfPlayConfig``, ``ModelConfig``, ``TrainConfig``), with the fields the
+port's code reads; the others (ex-it, ...) come with the code that reads
+them.
 Schedules are piecewise-linear tables over the total visit count, written
 ``"100=1.87,200=1.49"``;
 :meth:`Schedule.at` evaluates one on a tensor with the same arithmetic as
@@ -103,14 +104,25 @@ class SearchConfig:
     #                                    root evals and unfused leaves
     step_kernel: bool = False          # unfused leaves step through the
     #                                    env_step kernel (one-hot weights)
+    feature_set: str = "v1"            # input plane family ("v1" / "v2")
 
     def resolve_auto(self, device) -> "SearchConfig":
         """Fill the ``None`` (auto) knobs for ``device``: the fused leaf
         kernel, EARLY-C termination and the exact ladder reader are on for
         ``cuda`` and off for the CPU.  An explicit ``True``/``False`` from
-        the caller always wins."""
+        the caller always wins.
+
+        The V2 plane set is never fused: the leaf kernel computes the 32 V1
+        planes, and the JAX package's fused path feeds those to the leaves
+        whatever the set (`search.py:629-637`) while its roots take V2
+        (`:591`), so it cannot run V2 fused either.  ``fused=None`` stays
+        off with V2, and ``fused=True`` with V2 raises."""
         on_gpu = torch.device(device).type == "cuda"
-        fused = on_gpu if self.fused is None else self.fused
+        if self.feature_set != "v1" and self.fused:
+            raise ValueError(f"the fused leaf kernel computes V1 planes; "
+                             f"feature_set={self.feature_set!r} runs unfused")
+        fused = (on_gpu and self.feature_set == "v1") if self.fused is None \
+            else self.fused
         adaptive = on_gpu if self.adaptive is None else self.adaptive
         exact = on_gpu if self.ladders_exact is None else self.ladders_exact
         return dataclasses.replace(self, fused=fused, adaptive=adaptive,
@@ -139,6 +151,31 @@ class ModelConfig:
     num_channels: int = 128
     num_blocks: int = 9
     num_samples: int = 8
-    num_features: int = 32             # V1 planes
+    num_features: int = 32             # input planes (32 for v1, 18 for v2)
+    feature_set: str = "v1"            # "v1" or "v2"
     ladder_features: bool = False      # does the net need planes 30/31?
     compute_dtype: str = "bfloat16"
+    remat: bool = False                # recompute each residual block's
+    #                                    activations in the backward pass
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer settings (`contrib/trainer/dream_tf/__main__.py:36-39,149`)."""
+
+    batch_size: int = 2048
+    max_examples: int = 524_288_000
+    initial_lr: float = 3e-4
+    warm_start_lr: float = 1e-4
+    lr_decay: float = 3.0              # divide by 3 on plateau
+    min_lr: float = 1e-5               # stop below this
+    l2_coef: float = 1e-4              # decoupled L2 (model_fn.py:104)
+    max_norm: bool = True              # conv column-norm clip (layers:33-50)
+    policy_coef: float = 0.12          # model_fn.py:48-78
+    value_coef: float = 1.0
+    ownership_coef: float = 1.0
+    label_smoothing: float = 0.2
+    history_dropout: float = 0.05      # input_fn.py:124-138
+    shuffle_buffer: int = 262_144
+    plateau_window: int = 4096         # hooks/learning_rate.py:34
+    checkpoint_every: int = 10_000

@@ -1,7 +1,8 @@
-"""V1 input feature planes for a batch of boards.
+"""Input feature planes for a batch of boards.
 
 Port of `dream_go_tpu/go/features.py` (``features_v1``, ``liberties_if``,
-``features_v1_batch``, ``extract_batch``) for the V1 set.  Plane order (`features.rs:104-148`):
+``features_v1_batch``, ``features_v1_full``, ``apply_symmetry``,
+``features_v2``, ``extract_batch``).  V1 plane order (`features.rs:104-148`):
 
   0  komi plane if black to move     1  komi plane if white to move
   2  constant: any move is super-ko  3  most recent move   4 previous move
@@ -25,9 +26,11 @@ import torch
 
 from .engine import (BLACK, EMPTY, OFFBOARD, GoState, chain_liberties,
                      pseudo_legal_mask, superko_mask)
-from .topology import NBR, NN
+from .topology import NBR, NN, SYM
 
 NUM_FEATURES_V1 = 32
+NUM_FEATURES_V2 = 18
+_INV_7_5 = float(np.float32(1.0 / 7.5))
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,9 +169,97 @@ def features_v1_batch(states: GoState, with_ladders: bool = False,
                 pick("pseudo_white", "pseudo_black")))
 
 
+def features_v1_full(states: GoState, with_ladders: bool = False,
+                     max_ladder_candidates: int = 24,
+                     ladders_exact: bool = False) -> torch.Tensor:
+    """V1 planes with planes 30/31 from the bounded reader
+    (:func:`dream_go_torch.go.ladder.ladder_planes`, the first
+    ``max_ladder_candidates`` capture starts of a board) when
+    ``with_ladders``."""
+    if not with_ladders:
+        return features_v1(states)
+    from .ladder import ladder_planes
+
+    cap, esc = ladder_planes(states, max_ladder_candidates,
+                             greedy=not ladders_exact)
+    return features_v1(states, ladder_capture=cap, ladder_escape=esc)
+
+
+def apply_symmetry(planes: torch.Tensor, symmetry) -> torch.Tensor:
+    """The D8 transform ``symmetry`` of [..., 19, 19, C] planes: one index
+    for all (an int or a 0-d tensor), or long[B], one per example of
+    [B, 19, 19, C] planes."""
+    c = planes.shape[-1]
+    flat = planes.reshape(planes.shape[:-3] + (NN, c))
+    perm = torch.as_tensor(SYM, dtype=torch.long, device=planes.device)[
+        torch.as_tensor(symmetry, device=planes.device).long()]
+    if perm.dim() == 1:
+        out = flat.index_select(-2, perm)
+    else:
+        out = torch.take_along_dim(flat, perm[..., None], dim=-2)
+    return out.reshape(planes.shape)
+
+
+def _v2_masks(device):
+    vx, vy = np.arange(NN) % 19, np.arange(NN) // 19
+    edge = (vx == 0) | (vx == 18) | (vy == 0) | (vy == 18)
+    corner = ((vx == 0) | (vx == 18)) & ((vy == 0) | (vy == 18))
+    return (torch.as_tensor(corner, device=device),
+            torch.as_tensor(edge & ~corner, device=device))
+
+
+def features_v2(states: GoState, with_ladders: bool = False,
+                ladders_exact: bool = False) -> torch.Tensor:
+    """float32[B, 19, 19, 18]: the V2 plane set (`features.rs:253-396`).
+
+    0 ones; 1 komi from the mover's side, ``clip(+-komi / 7.5, -1, 1)``;
+    2 own stones; 3 opponent stones; 4-7 chains with exactly 1..4
+    liberties; 8-9 exactly 1..2 liberties if played; 10 valid move; 11 own
+    Benson eye; 12 opponent Benson eye; 13 super-ko; 14 ladder capture; 15
+    ladder escape; 16 corner; 17 edge.  Ladders come from the bounded
+    per-board reader (24 capture and 8 escape starts), never the kernel,
+    as in the JAX package (`features.py:314`)."""
+    from .benson import benson
+    from .ladder import ladder_planes
+
+    stones, cid = states.stones, states.chain_id
+    me = states.to_move.reshape(-1, 1).to(stones.dtype)
+    opp = OFFBOARD - me
+    point_libs, chain_libs = chain_liberties(stones, cid)
+    valid_me = pseudo_legal_mask(states, states.to_move)
+    libs_if_me = torch.where(
+        valid_me, liberties_if(states, states.to_move, chain_libs), 0)
+    ko = superko_mask(states, states.to_move) & valid_me
+    _, eye_me = benson(stones, cid, me)
+    _, eye_opp = benson(stones, cid, opp)
+    komi = torch.where(states.to_move == BLACK, -states.komi, states.komi)
+    # XLA divides by the constant as a product with its float32 reciprocal
+    komi_c = torch.clamp(komi.to(torch.float32) * _INV_7_5, -1.0,
+                         1.0)[:, None]
+    if with_ladders:
+        cap, esc = ladder_planes(states, greedy=not ladders_exact)
+    else:
+        cap = esc = torch.zeros_like(valid_me)
+    corner, edge = _v2_masks(stones.device)
+
+    b = stones.shape[0]
+    ones = torch.ones(b, NN, device=stones.device)
+    f32 = lambda x: x.to(torch.float32).expand(b, NN)
+    planes = [ones, ones * komi_c, f32(stones == me), f32(stones == opp)]
+    planes += [f32(point_libs == k) for k in range(1, 5)]
+    planes += [f32(valid_me & (libs_if_me == 1)),
+               f32(valid_me & (libs_if_me == 2)), f32(valid_me),
+               f32(eye_me), f32(eye_opp), f32(ko), f32(cap & valid_me),
+               f32(esc & valid_me), f32(corner), f32(edge)]
+    return torch.stack(planes, dim=-1).reshape(b, 19, 19, NUM_FEATURES_V2)
+
+
 def extract_batch(states: GoState, with_ladders: bool = False,
-                  use_kernel: bool = False,
-                  ladders_exact: bool = False) -> torch.Tensor:
-    """Batched network input: the V1 planes, the one set the port
-    computes."""
+                  use_kernel: bool = False, ladders_exact: bool = False, *,
+                  feature_set: str = "v1") -> torch.Tensor:
+    """Batched network input for the plane set ``feature_set``: V1
+    (:func:`features_v1_batch`) or V2 (:func:`features_v2`, which takes
+    no kernel)."""
+    if feature_set == "v2":
+        return features_v2(states, with_ladders, ladders_exact)
     return features_v1_batch(states, with_ladders, use_kernel, ladders_exact)

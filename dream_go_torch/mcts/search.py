@@ -217,7 +217,8 @@ def _dirichlet_mix(gen, prior, candidate, beta, alpha):
 
 def _net_input(states: GoState, cfg: SearchConfig) -> torch.Tensor:
     return features.extract_batch(states, cfg.ladder_features,
-                                  cfg.feature_kernel, bool(cfg.ladders_exact))
+                                  cfg.feature_kernel, bool(cfg.ladders_exact),
+                                  feature_set=cfg.feature_set)
 
 
 def _leaf_ladder_planes(leaf_packed, cfg: SearchConfig,
@@ -522,6 +523,8 @@ def run_search(trees: Tree, predictor, cfg: SearchConfig, num_sims: int,
             trees, cfg, batch, cap)
         parent = _map(trees.states, lambda x: _flat(x)[base + node])
         if cfg.fused:
+            if cfg.feature_set != "v1":
+                raise ValueError("the fused leaf kernel computes V1 planes")
             leaf_packed, feats_k, cand = leaf_step(
                 *_widen_rows(parent), action, parent.komi)
             leaf_states = _narrow_rows(leaf_packed, parent.komi)

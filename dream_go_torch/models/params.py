@@ -1,11 +1,15 @@
 """Weights: BN folding, the ``dream_go.json`` format, and the bridge from
 the JAX package's parameter trees.
 
-Port of `dream_go_tpu/models/params.py` (``load_json``, ``decode_entry``,
-``fold_params``).  Parameter trees here are nested dicts of numpy arrays in
-the flax layout (conv kernels HWIO, dense kernels [in, out]);
-:func:`to_state_dict` turns a folded tree into the ``state_dict`` of
-:class:`dream_go_torch.models.tower.Tower` (conv OIHW, linear [out, in]).
+Port of `dream_go_tpu/models/params.py` (``load_json``, ``dump_json``,
+``decode_entry``, ``decode_raw``, ``fold_params``).  Parameter trees here
+are nested dicts of numpy arrays in the flax layout (conv kernels HWIO,
+dense kernels [in, out]); :func:`to_state_dict` turns a folded tree into
+the ``state_dict`` of :class:`dream_go_torch.models.tower.Tower` (conv
+OIHW, linear [out, in]), and :func:`from_train_tree` /
+:func:`to_train_tree` turn a training tree (``params`` and
+``batch_stats``) into the ``state_dict`` of
+:class:`dream_go_torch.models.tower.TrainTower` and back.
 
 BN folding (scale fixed at 1, `batch_norm.py:42`):
 ``w' = w / sqrt(var + 1e-3)``, ``b' = offset - mean / sqrt(var + 1e-3)``.
@@ -66,17 +70,16 @@ def fold_params(cfg: ModelConfig, params, batch_stats):
 
 def _conv_sd(prefix: str, scope) -> dict:
     k = np.asarray(scope["kernel"], np.float32)
-    return {f"{prefix}.weight": torch.from_numpy(
-                np.ascontiguousarray(k.transpose(3, 2, 0, 1))),
-            f"{prefix}.bias": torch.from_numpy(
-                np.asarray(scope["bias"], np.float32).copy())}
+    return {f"{prefix}.weight": torch.tensor(k.transpose(3, 2, 0, 1)),
+            f"{prefix}.bias": torch.tensor(
+                np.asarray(scope["bias"], np.float32))}
 
 
 def _dense_sd(prefix: str, scope) -> dict:
     k = np.asarray(scope["kernel"], np.float32)
-    return {f"{prefix}.weight": torch.from_numpy(np.ascontiguousarray(k.T)),
-            f"{prefix}.bias": torch.from_numpy(
-                np.asarray(scope["bias"], np.float32).copy())}
+    return {f"{prefix}.weight": torch.tensor(k.T),
+            f"{prefix}.bias": torch.tensor(
+                np.asarray(scope["bias"], np.float32))}
 
 
 def to_state_dict(cfg: ModelConfig, folded) -> dict:
@@ -106,6 +109,164 @@ def from_jax_params(cfg: ModelConfig, params, batch_stats=None) -> dict:
     folded = fold_params(cfg, params, batch_stats) if batch_stats \
         else params
     return to_state_dict(cfg, folded)
+
+
+def _train_layout(cfg: ModelConfig):
+    """``(TrainTower prefix, flax scope path, kind)`` of every layer."""
+    yield "upsample", ("upsample",), "bnconv"
+    for i in range(cfg.num_blocks):
+        scope = f"residual_{i:02d}"
+        yield f"blocks.{i}.conv_1", (scope, "conv_1"), "bnconv"
+        yield f"blocks.{i}.conv_2", (scope, "conv_2"), "bnconv"
+        yield f"blocks.{i}.alpha", (scope, "alpha"), "alpha"
+    yield "policy_conv", ("policy", "conv_1"), "bnconv"
+    yield "policy_linear", ("policy", "linear_1"), "dense"
+    yield "value_conv", ("value", "conv_1"), "bnconv"
+    yield "ownership_conv", ("value", "conv_2"), "conv"
+    yield "value_linear", ("value", "linear_2"), "dense"
+
+
+def _scope(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def from_train_tree(cfg: ModelConfig, params, batch_stats) -> dict:
+    """The JAX package's training trees (``params`` and ``batch_stats``,
+    as numpy arrays) -> :class:`TrainTower` ``state_dict``."""
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))
+    sd = {}
+    for prefix, path, kind in _train_layout(cfg):
+        p = _scope(params, path)
+        if kind == "bnconv":
+            st = _scope(batch_stats, path)["bn"]
+            sd[f"{prefix}.conv.weight"] = t(
+                np.asarray(p["conv"]["kernel"]).transpose(3, 2, 0, 1))
+            sd[f"{prefix}.bn.bias"] = t(p["bn"]["bias"])
+            sd[f"{prefix}.bn.mean"] = t(st["mean"])
+            sd[f"{prefix}.bn.var"] = t(st["var"])
+        elif kind == "alpha":
+            sd[prefix] = t(p)
+        else:
+            sd.update(_conv_sd(prefix, p) if kind == "conv"
+                      else _dense_sd(prefix, p))
+    return sd
+
+
+def to_train_tree(cfg: ModelConfig, sd: dict):
+    """:class:`TrainTower` ``state_dict`` (or any map of those names to
+    tensors) -> the JAX package's ``(params, batch_stats)`` trees, float32
+    numpy in the flax layout."""
+    a = lambda name: sd[name].detach().float().cpu().numpy()
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = value
+
+    for prefix, path, kind in _train_layout(cfg):
+        if kind == "bnconv":
+            put(params, path, {
+                "conv": {"kernel": a(f"{prefix}.conv.weight")
+                         .transpose(2, 3, 1, 0)},
+                "bn": {"bias": a(f"{prefix}.bn.bias")}})
+            put(stats, path, {"bn": {"mean": a(f"{prefix}.bn.mean"),
+                                     "var": a(f"{prefix}.bn.var")}})
+        elif kind == "alpha":
+            put(params, path, a(prefix))
+        elif kind == "conv":
+            put(params, path, {"kernel": a(f"{prefix}.weight")
+                               .transpose(2, 3, 1, 0),
+                               "bias": a(f"{prefix}.bias")})
+        else:
+            put(params, path, {"kernel": a(f"{prefix}.weight").T,
+                               "bias": a(f"{prefix}.bias")})
+    return params, stats
+
+
+def fold_train(cfg: ModelConfig, sd: dict) -> dict:
+    """:class:`TrainTower` ``state_dict`` -> the folded :class:`Tower`
+    ``state_dict`` (running statistics folded into the conv biases)."""
+    return to_state_dict(cfg, fold_params(cfg, *to_train_tree(cfg, sd)))
+
+
+def _entry(values: np.ndarray, ttype: str = "f2", scale: float = 1.0) -> dict:
+    values = np.asarray(values)
+    if ttype == "f2":
+        payload = values.astype(np.float16)
+        if payload.size % 2:  # b85 groups are 4 bytes = two f16
+            payload = np.concatenate([payload.reshape(-1),
+                                      np.zeros(1, np.float16)])
+    elif ttype == "f4":
+        payload = values.astype(np.float32)
+    elif ttype == "i4":
+        payload = values.astype(np.int32)
+    elif ttype == "i1":
+        payload = values.astype(np.int8)
+    else:
+        raise ValueError(f"unknown tensor type {ttype}")
+    return {
+        # scale is a single b85 f32, per loader.rs:53-57
+        "s": b85.encode_bytes(np.float32(scale).tobytes()),
+        "t": ttype,
+        "v": b85.encode_bytes(payload.tobytes()),
+    }
+
+
+def _hwio_to_oihw(kernel: np.ndarray) -> np.ndarray:
+    return np.transpose(kernel, (3, 2, 0, 1))
+
+
+def dump_json(cfg: ModelConfig, params, batch_stats) -> str:
+    """Serialize training trees to the reference weights JSON (BN folded,
+    conv kernels OIHW, dense kernels [out, in], f16 payloads)."""
+    folded = fold_params(cfg, params, batch_stats)
+    out = {
+        "num_channels:0": _entry(np.asarray([cfg.num_channels]), "i4"),
+        "num_samples:0": _entry(np.asarray([cfg.num_samples]), "i4"),
+        "num_blocks:0": _entry(np.asarray([cfg.num_blocks]), "i4"),
+        # the input contract: were planes 30/31 populated in training?
+        "ladder_features:0": _entry(
+            np.asarray([int(cfg.ladder_features)]), "i4"),
+    }
+
+    def conv(name, scope):
+        out[f"{name}:0"] = _entry(_hwio_to_oihw(scope["conv"]["kernel"]))
+        out[f"{name}/offset:0"] = _entry(scope["conv"]["bias"])
+
+    conv("01_upsample/conv_1", folded["upsample"])
+    for i in range(cfg.num_blocks):
+        src = folded[f"residual_{i:02d}"]
+        conv(f"{i + 2:02d}_residual/conv_1", src["conv_1"])
+        conv(f"{i + 2:02d}_residual/conv_2", src["conv_2"])
+        out[f"{i + 2:02d}_residual/alpha:0"] = _entry(
+            np.asarray([src["alpha"]]), "f4")
+    j = cfg.num_blocks + 2
+    conv(f"{j:02d}p_policy/conv_1", folded["policy"]["conv_1"])
+    out[f"{j:02d}p_policy/linear_1:0"] = _entry(
+        np.asarray(folded["policy"]["linear_1"]["kernel"]).T)  # [362, 361*s]
+    out[f"{j:02d}p_policy/linear_1/offset:0"] = _entry(
+        folded["policy"]["linear_1"]["bias"])
+    conv(f"{j:02d}v_value/conv_1", folded["value"]["conv_1"])
+    out[f"{j:02d}v_value/linear_2:0"] = _entry(
+        np.asarray(folded["value"]["linear_2"]["kernel"]).T)  # [1, 722]
+    out[f"{j:02d}v_value/linear_2/offset:0"] = _entry(
+        folded["value"]["linear_2"]["bias"])
+    # the ownership head (the reference loader ignores it)
+    out[f"{j:02d}v_value/conv_2:0"] = _entry(
+        _hwio_to_oihw(np.asarray(folded["value"]["conv_2"]["kernel"])))
+    out[f"{j:02d}v_value/conv_2/offset:0"] = _entry(
+        folded["value"]["conv_2"]["bias"])
+    return json.dumps(out)
+
+
+def decode_raw(text: str) -> dict:
+    """Every tensor of a weights JSON as a name -> float32 array map (no
+    model reassembly), for ``--print``."""
+    return {name: decode_entry(entry)
+            for name, entry in json.loads(text).items()}
 
 
 def decode_entry(entry: dict) -> np.ndarray:

@@ -56,11 +56,12 @@ class PolicyPlayer:
 
     def __init__(self, predictor, *, temperature: float = 0.7,
                  cutoff_percentile: float = 0.5,
-                 ladder_features: bool = False):
+                 ladder_features: bool = False, feature_set: str = "v1"):
         self.predict = predictor
         self.temperature = temperature
         self.cutoff_percentile = cutoff_percentile
         self.ladder_features = ladder_features
+        self.feature_set = feature_set
 
 
 def _build_move_fn(player: PolicyPlayer):
@@ -72,7 +73,8 @@ def _build_move_fn(player: PolicyPlayer):
     def move_fn(states: GoState, gen: torch.Generator):
         exact = states.stones.device.type == "cuda"
         feats = features.extract_batch(states, player.ladder_features,
-                                       False, exact)
+                                       False, exact,
+                                       feature_set=player.feature_set)
         value, policy = player.predict(feats)
         mask = torch.where(bn.is_scorable(states)[:, None],
                            engine.legal_mask(states), scoring_mask(states))

@@ -186,7 +186,8 @@ def _policy_stagger(predictor, cfg: SelfPlayConfig, search_cfg: SearchConfig,
     dev = states.stones.device
     player = PolicyPlayer(predictor, temperature=search_cfg.temperature,
                           cutoff_percentile=search_cfg.cutoff_percentile,
-                          ladder_features=search_cfg.ladder_features)
+                          ladder_features=search_cfg.ladder_features,
+                          feature_set=search_cfg.feature_set)
     move_fn = _build_move_fn(player)
     targets = (np.arange(b) * cfg.max_moves) // b
     dtargets = torch.as_tensor(targets, device=dev)

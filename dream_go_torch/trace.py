@@ -1,8 +1,10 @@
-"""Where the self-play time goes on the card.
+"""Where the self-play (or training) time goes on the card.
 
     python -m dream_go_torch.trace [--games 256] [--rollouts 64] \\
         [--moves 3] [--profile-sims 8] [--ladder-features] \\
         [--no-fused] [--feature-kernel]
+    python -m dream_go_torch.trace --train [--train-steps 5] \\
+        [--batch-size 2048] [--bank-games 1024] [--train-data FILE]
 
 Runs the CLI's continuous self-play (by default at the full 128 x 9
 width, seeded random weights) for a few batch moves and prints two
@@ -18,6 +20,12 @@ breakdowns:
    levels each select walks (the deepest game of the batch);
 2. a ``torch.profiler`` window over ``--profile-sims`` simulations: device
    time by kernel, and the device's busy and idle share of the window.
+
+With ``--train`` it profiles ``--train-steps`` steps of the trainer
+instead (`train/train_loop.py::Trainer.fit`, 128 x 9 bf16, batches of
+``--batch-size`` from a bank of ``--bank-games`` games of ``--train-data``,
+8 positions each, after three steps of warm-up that build the bank): the
+milliseconds a step, device time by kernel and the idle share.
 
 Timing with synchronisation slows the run down; the stage shares are what
 it is for, not the absolute rate.  The card's name and power limit are
@@ -190,7 +198,12 @@ def profile_window(args) -> dict:
         trees = S.run_search(trees, predictor, cfg, args.profile_sims,
                              use_scoring)
         _sync()
-    wall = time.perf_counter() - t0
+    return dict(sims=args.profile_sims,
+                **_device_time(prof, time.perf_counter() - t0))
+
+
+def _device_time(prof, wall: float) -> dict:
+    """A profiler window's device time by kernel and idle share."""
     kernels = collections.Counter()
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -198,10 +211,40 @@ def profile_window(args) -> dict:
     busy_us = sum(kernels.values())
     top = [{"kernel": k[:90], "ms": v / 1e3}
            for k, v in kernels.most_common(12)]
-    return {"sims": args.profile_sims, "wall_ms": wall * 1e3,
-            "device_busy_ms": busy_us / 1e3,
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
             "top_kernels": top}
+
+
+def train_window(args) -> dict:
+    """torch.profiler over ``--train-steps`` steps of the trainer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .config import ModelConfig, TrainConfig
+    from .train.pipeline import ExampleSource
+    from .train.train_loop import Trainer
+
+    dev = args.device
+    with open(args.train_data) as fh:
+        lines = [line.strip() for line in fh if line.strip()]
+    src = ExampleSource(lines, args.batch_size, seed=0, positions_per_game=8,
+                        bank_games=args.bank_games, device=dev)
+    trainer = Trainer.create(
+        ModelConfig(num_channels=args.channels, num_blocks=args.blocks),
+        TrainConfig(batch_size=args.batch_size), device=dev)
+    trainer.fit(src, 3, log_every=0)  # warm-up; builds the bank
+    _sync()
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        trainer.fit(src, args.train_steps, log_every=0)
+        _sync()
+    wall = time.perf_counter() - t0
+    return dict(steps=args.train_steps, batch=args.batch_size,
+                ms_per_step=wall * 1e3 / args.train_steps,
+                **_device_time(prof, wall))
 
 
 def main(argv=None):
@@ -220,6 +263,12 @@ def main(argv=None):
     parser.add_argument("--feature-kernel", action="store_true",
                         help="root evals and unfused leaves take the "
                              "liberties-after feature kernel")
+    parser.add_argument("--train", action="store_true",
+                        help="profile the trainer's steps instead")
+    parser.add_argument("--train-steps", type=int, default=5)
+    parser.add_argument("--batch-size", type=int, default=2048)
+    parser.add_argument("--bank-games", type=int, default=1024)
+    parser.add_argument("--train-data", default="models/rl20/gen_0000.sgf")
     parser.add_argument("--device", type=torch.device, default="cuda",
                         help="cpu only rehearses the script: its times "
                              "are not device times")
@@ -233,6 +282,9 @@ def main(argv=None):
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip(), flush=True)
+    if args.train:
+        print(json.dumps({"train": train_window(args)}), flush=True)
+        return
     print(json.dumps({"stage_breakdown": stage_breakdown(args)}), flush=True)
     print(json.dumps({"profile": profile_window(args)}), flush=True)
 

@@ -17,7 +17,11 @@ def encode(array: np.ndarray) -> str:
     array = np.asarray(array)
     if array.dtype == np.float32 or array.dtype == np.float64:
         array = array.astype(np.float16)
-    data = array.tobytes()
+    return encode_bytes(array.tobytes())
+
+
+def encode_bytes(data: bytes) -> str:
+    """Encode raw little-endian bytes (a multiple of 4) as they are."""
     if len(data) % 4 != 0:
         raise ValueError(f"b85 payload must be a multiple of 4 bytes, "
                          f"got {len(data)}")

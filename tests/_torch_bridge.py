@@ -94,14 +94,14 @@ _W = (np.arange(19 * 19 * 32).reshape(19, 19, 32) % 7 + 1).astype(np.int32)
 
 def det_predictor_jax():
     """The deterministic predictor of the search parity tests, defined the
-    same way in both packages: a hash of the feature bits picks dyadic
-    policy entries (their float32 sums are exact in any order) and a
+    same way in both packages: a hash of the feature bits (any number of
+    planes up to 32) picks dyadic policy entries (their float32 sums are exact in any order) and a
     dyadic value, so both searches see identical numbers."""
     w = jnp.asarray(_W)
 
     def predict(feats):
         bits = (feats > 0.5).astype(jnp.int32)
-        h = jnp.sum(bits * w, axis=(1, 2, 3))
+        h = jnp.sum(bits * w[..., :feats.shape[-1]], axis=(1, 2, 3))
         a = jnp.arange(362, dtype=jnp.int32)
         k = (h[:, None] * 31 + a[None, :] * 17) % 251 + 1
         value = ((h % 200) + 28).astype(jnp.float32) / 256.0
@@ -118,7 +118,8 @@ def det_predictor_torch():
 
     def predict(feats):
         bits = (feats > 0.5).to(torch.int32)
-        h = (bits * w.to(feats.device)).sum(dim=(1, 2, 3))
+        h = (bits * w[..., :feats.shape[-1]].to(feats.device)).sum(
+            dim=(1, 2, 3))
         a = torch.arange(362, dtype=torch.int32, device=feats.device)
         k = (h[:, None] * 31 + a[None, :] * 17) % 251 + 1
         value = ((h % 200) + 28).to(torch.float32) / 256.0

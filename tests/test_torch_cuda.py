@@ -465,3 +465,103 @@ def test_gtp_and_reanalyze_on_the_card_equal_the_cpu(cuda_device, tmp_path):
     card, host = [[re.sub(r"DT\[[^\]]*\]", "", x) for x in ls]
                   for ls in lines]
     assert card == host and "TV[16]" in card[0]
+
+
+# ---------------------------------------------------------------------------
+# the trainer slice
+
+#: the first eight games of the rl20 run, the trainer tests' data
+RL20_GAMES = "tests/fixtures/rl20_gen0000_first8.sgf"
+#: a bf16 train step's losses against float32's (TF32 off) from the same
+#: weights and batch, relative: bf16 keeps 8 bits of mantissa (a relative
+#: rounding of 2^-9 ~ 2e-3 an operation), and the losses are means over
+#: the batch of 19 layers' worth of such roundings
+BF16_LOSS_RTOL = 2e-2
+
+
+def _rl20_lines():
+    with open(RL20_GAMES) as fh:
+        return [line.strip() for line in fh if line.strip()]
+
+
+def _game_positions(dev, per_game: int, seed: int = 0):
+    """``per_game`` positions drawn from each of the eight rl20 games,
+    replayed as the trainer replays them: 8 x ``per_game`` boards."""
+    import numpy as np
+
+    from dream_go_torch.selfplay.replay import states_at_multi
+    from dream_go_torch.train import pipeline as P
+
+    games = [P.parse_game(line) for line in _rl20_lines()]
+    t_max = max(len(g.moves) for g in games)
+    moves = np.full((len(games), t_max), 361, np.int32)
+    rng = np.random.default_rng(seed)
+    targets = np.stack([rng.integers(0, len(g.moves), per_game)
+                        for g in games]).astype(np.int32)
+    for i, g in enumerate(games):
+        moves[i, :len(g.moves)] = g.moves
+    komi = torch.tensor([g.komi for g in games], dtype=torch.float32,
+                        device=dev)
+    states = states_at_multi(torch.as_tensor(moves, device=dev),
+                             torch.as_tensor(targets, device=dev), komi, 16)
+    return engine.GoState(**{k: v.reshape((-1,) + v.shape[2:])
+                             for k, v in states.fields().items()})
+
+
+@pytest.mark.cuda
+def test_trainer_chunk_kernels_match_plain(cuda_device):
+    """The ladder and feature kernels on positions of real games at the
+    pipeline's chunk (``FEATURE_CHUNK`` = 1024 boards), and the chunk's
+    planes (ladders off) against the plain V1 planes."""
+    from dream_go_torch.go import features
+    from dream_go_torch.train import pipeline as P
+
+    states = _game_positions(cuda_device, P.FEATURE_CHUNK // 8)
+    assert states.batch == P.FEATURE_CHUNK
+    rows = layout.pack_states(states)
+    assert torch.equal(LA.features_raw(rows[0], rows[1]),
+                       LA.features_raw_plain(rows[0], rows[1]))
+    got = LK.ladder_planes_kernel(*_ladder_args(states))
+    want = LK.ladder_planes_plain(*_ladder_args(states))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].sum()) + int(got[1].sum()) > 0
+    before = LA.launches
+    assert torch.equal(P.planes(states, False),
+                       features.extract_batch(states, False, False, False))
+    assert LA.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_train_step_bf16_close_to_float32(cuda_device):
+    """One 128 x 9 train step at B = 64 on a bank of the rl20 games: the
+    bf16 step's losses are finite and within ``BF16_LOSS_RTOL`` of the
+    float32 step's, from the same weights and batch."""
+    import math
+
+    from dream_go_torch.config import ModelConfig, TrainConfig
+    from dream_go_torch.train import pipeline as P
+    from dream_go_torch.train import train_loop as TL
+
+    src = P.ExampleSource(_rl20_lines(), 64, seed=0, positions_per_game=8,
+                          bank_games=8, device=cuda_device)
+    feats, labels = next(iter(src.batches(1)))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = {}
+        for dtype in ("float32", "bfloat16"):
+            tr = TL.Trainer.create(ModelConfig(compute_dtype=dtype),
+                                   TrainConfig(batch_size=64), seed=0,
+                                   device=cuda_device)
+            got[dtype] = {k: float(v) for k, v in TL.train_step(
+                tr.model, tr.optimizer, tr.train_cfg, feats, labels,
+                3e-4).items()}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    for k in ("loss", "loss_policy", "loss_value", "loss_ownership"):
+        a, b = got["bfloat16"][k], got["float32"][k]
+        assert math.isfinite(a) and abs(a - b) <= BF16_LOSS_RTOL * abs(b), \
+            (k, a, b)

@@ -51,7 +51,7 @@ def test_schedule_at_matches_jnp_interp(text):
 
 
 @pytest.mark.parametrize("cls", ["SearchConfig", "SelfPlayConfig",
-                                 "ModelConfig"])
+                                 "ModelConfig", "TrainConfig"])
 def test_config_defaults_match(cls):
     t, j = getattr(tcfg, cls)(), getattr(jcfg, cls)()
     names = {f.name for f in dataclasses.fields(t)}
@@ -88,5 +88,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for m in mods:
                 top = m.split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax",
-                                   "dream_go_tpu"), (path, m)
+                assert top not in ("jax", "jaxlib", "flax", "optax",
+                                   "orbax", "dream_go_tpu"), (path, m)
+
+
+@pytest.mark.parametrize("cls,fields", [
+    ("TrainConfig", [f.name for f in dataclasses.fields(jcfg.TrainConfig)]),
+    ("ModelConfig", ["num_features", "feature_set", "remat"]),
+    ("SearchConfig", ["feature_set"])])
+def test_config_fields_present(cls, fields):
+    """The trainer slice's fields exist in the port with JAX's defaults
+    (``test_config_defaults_match`` compares the fields both have)."""
+    t, j = getattr(tcfg, cls)(), getattr(jcfg, cls)()
+    for name in fields:
+        assert getattr(t, name) == getattr(j, name), name
