@@ -48,8 +48,8 @@ Phases, in order, each printed with its seconds:
    (plain versions) with a deterministic predictor give the same games:
    planes off, planes on (fused), planes on with the feature kernel
    (unfused), unfused leaves stepped by the env-step kernel, and the V2
-   plane set (unfused, the predictor on 18 planes); then one
-   deep search, 400 rollouts from 8 boards, whose trees on the card and
+   plane set (unfused, the predictor on 18 planes), 8 moves each (V2 6);
+   then one deep search, 200 rollouts from 8 boards, whose trees on the card and
    on the CPU are equal in every field.  The CPU sides of this phase and
    of the serve phase run in a spawned process of their own while the
    card runs;
@@ -94,6 +94,23 @@ Phases, in order, each printed with its seconds:
      one float32 train step at 128 x 9, B = 64, on the card against the
      CPU's (losses, gradients, running statistics, parameters after Adam,
      each within its stated limit);
+   - the closed RL loop (the loop phase) through ``cli.main`` at the
+     CLI's width and batch (128 x 9, B = 2048, 256 train steps a
+     generation): ``--loop 2 --ex-it --ladder-features`` with 32 policy
+     games of 120 moves a generation, ex-it at 16 rollouts and banks of
+     256 games, then ``--loop 3 --resume-loop --warm-restart`` on the
+     same directory: each generation's files, every SGF line well
+     formed, the step counts, the resume and warm-restart lines, finite
+     losses, the leaf-step, ladder and feature kernels launched (the
+     env-step kernel not), a genmove served from ``weights_0002.json``,
+     and the seconds of each generation's play, ex-it, bank and train;
+   - leela-zero distillation (the distill phase): a random 192 x 15
+     teacher written and parsed as an LZ text file (both timed), its
+     card outputs on 8 positions within the stated limits of the CPU's,
+     ``--start models/rl20/gen_0047.sgf --lz-weights`` for 3 steps at
+     128 x 9, B = 2048 (finite losses, the feature kernel launched), the
+     distilled labels without ownership, and the ms of a step, of a
+     per-batch replay and of the teacher;
    - the benchmark entry, ``dream_go_torch.bench.main`` in this process
      with ``--full`` and two cuts, ``--selfplay-rollouts 64
      --selfplay-window 60``: the env stage (4096 boards, 151 env-step
@@ -142,10 +159,11 @@ ENV_BATCHES = PARITY_BATCHES + (4096,)
 ENV_CHAIN_BATCH, ENV_CHAIN_STEPS = 256, 200
 #: the step-kernel search path, cut in depth
 STEP_GAMES, STEP_ROLLOUTS, STEP_MOVES = 64, 16, 8
-#: the deep search of the reference phase: 400 rollouts (the production
+#: the deep search of the reference phase: 200 rollouts (the production
 #: budget, 1600, takes ~340 s on the card and ~310 s on the CPU, more than
-#: the smoke's time allows)
-REF_BOARDS, REF_SIMS = 8, 400
+#: the smoke's time allows; 400 took ~145 s on a slow host, cut to make
+#: room for the loop and distill phases)
+REF_BOARDS, REF_SIMS = 8, 200
 #: the serve phase: genmoves at 100 rollouts (then one at the CLI's
 #: default 1600), three with the sanity net, seconds of pondering, self-play
 #: games reanalyzed; the card-against-CPU session's rollouts and the move
@@ -174,6 +192,23 @@ TRAIN_DATA = ("models/rl20/gen_0000.sgf", "models/rl20/gen_0001.sgf",
 TRAIN_DIR = "build/smoke"
 TRAIN_STEPS, RESUME_STEPS = 20, 5
 TRAIN_GENMOVES, TRAIN_ROLLOUTS = 2, 16
+#: the loop phase: ``--loop 2``, then ``--loop 3 --resume-loop
+#: --warm-restart``, at the CLI's width and batch (128 x 9, B = 2048, 256
+#: train steps a generation), cut in depth: games a generation, ex-it
+#: rollouts, the game length and the example bank
+LOOP_DIR = "build/smoke_loop"
+LOOP_GAMES, LOOP_ROLLOUTS, LOOP_MOVES, LOOP_BANK = 32, 16, 120, 256
+LOOP_STEPS = 256
+#: the distill phase: a random leela-zero teacher at the width of public
+#: leela-zero nets (192 filters, 15 blocks), its kernels rescaled so that
+#: its outputs do not saturate; ``--start --lz-weights`` for a few steps
+#: at 128 x 9, B = 2048; the card's float32 teacher (TF32 off) held
+#: against the CPU's on 8 positions: max |value| and max |policy|
+#: (cuDNN's and the CPU's convolutions sum in other orders over 31
+#: layers)
+DISTILL_DIR = "build/smoke_distill"
+DISTILL_FILTERS, DISTILL_BLOCKS, DISTILL_STEPS = 192, 15, 3
+TEACHER_VALUE_ATOL, TEACHER_POLICY_ATOL = 1e-3, 1e-5
 #: one float32 train step, card against CPU (TF32 off), 128 x 9 at
 #: B = 64: the losses, relative (float32 sums over 64 examples in other
 #: orders); the gradients, relative in L2 norm over all tensors and in
@@ -758,28 +793,30 @@ def det_predictor():
     return Predictor(predict)
 
 
-#: the reference phase's search configurations: a name and the search
-#: knobs; the kernel each must launch on the card is in `reference_phase`
+#: the reference phase's search configurations: a name, the search
+#: knobs and the game length; the kernel each must launch on the card is
+#: in `reference_phase`.  The runs are cut from 12 moves to 8 (V2, which
+#: runs no kernel, to 6) to make room for the loop and distill phases
 REF_VARIANTS = [
-    ("planes off, fused", dict(fused=True)),
+    ("planes off, fused", dict(fused=True), 8),
     ("planes on, fused", dict(fused=True, ladder_features=True,
-                              ladders_exact=True)),
+                              ladders_exact=True), 8),
     ("planes on, unfused, feature kernel",
      dict(fused=False, feature_kernel=True, ladder_features=True,
-          ladders_exact=True)),
-    ("unfused, step kernel", dict(fused=False, step_kernel=True)),
-    ("V2, unfused", dict(fused=False, feature_set="v2"))]
+          ladders_exact=True), 8),
+    ("unfused, step kernel", dict(fused=False, step_kernel=True), 8),
+    ("V2, unfused", dict(fused=False, feature_set="v2"), 6)]
 
 
-def reference_selfplay(kw, device) -> list[str]:
-    """4 games x 16 rollouts x 12 moves of self-play with the
+def reference_selfplay(kw, device, moves) -> list[str]:
+    """4 games x 16 rollouts x ``moves`` moves of self-play with the
     deterministic predictor, no noise, EARLY-C, the search knobs ``kw``,
     on ``device``: the SGF lines with their dates stripped."""
     from dream_go_torch.config import SearchConfig, SelfPlayConfig
     from dream_go_torch.selfplay.search_play import \
         search_self_play_continuous
 
-    cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=12,
+    cfg = SelfPlayConfig(num_games=4, num_rollout=16, max_moves=moves,
                          temperature_moves=0)
     scfg = SearchConfig(num_rollout=16, dirichlet_noise=0.0, adaptive=True,
                         **kw)
@@ -794,7 +831,7 @@ def reference_phase(dev, host):
     process of its own, while the card runs.  With planes on, the card
     reads ladders with the kernel (every candidate) and the CPU with the
     bounded exact reader (24 capture and 8 escape starts a board); from
-    empty boards no position of these 12-move games comes near those
+    empty boards no position of these 8-move games comes near those
     bounds, so the two agree, and the bound tests
     (tests/test_torch_ladder.py) hold the difference."""
     from dream_go_torch.ops import env_step as E
@@ -802,13 +839,14 @@ def reference_phase(dev, host):
     from dream_go_torch.ops import libs_after as LA
 
     t0 = time.monotonic()
-    on_host = [host.submit(reference_selfplay, kw, "cpu")
-               for _, kw in REF_VARIANTS]
+    on_host = [host.submit(reference_selfplay, kw, "cpu", moves)
+               for _, kw, moves in REF_VARIANTS]
     host_trees = host.submit(production_trees, "cpu")
-    for (name, kw), kernel, cpu in zip(REF_VARIANTS, (None, LK, LA, E, None),
+    for (name, kw, moves), kernel, cpu in zip(REF_VARIANTS,
+                                              (None, LK, LA, E, None),
                                        on_host):
         before = kernel.launches if kernel else 0
-        card = reference_selfplay(kw, dev)
+        card = reference_selfplay(kw, dev, moves)
         check(kernel is None or kernel.launches > before,
               f"the card run did not launch its kernel ({name})")
         check(len(card) == 4 and card == cpu.result(),
@@ -1316,7 +1354,12 @@ def train_step_parity(dev, host):
     feats, labels = next(iter(src.batches(1)))
     feats, labels = feats.cpu(), {k: v.cpu() for k, v in labels.items()}
     sd = T.init_train_tower(ModelConfig(), seed=3, device="cpu").state_dict()
-    on_host = host.submit(train_step_reference, "cpu", sd, feats, labels)
+    # the host gets copies: pickling a CPU tensor for the worker moves its
+    # storage into shared memory on a feeder thread, which would race with
+    # this thread's copy of the same tensor to the card
+    on_host = host.submit(
+        train_step_reference, "cpu", {k: v.clone() for k, v in sd.items()},
+        feats.clone(), {k: v.clone() for k, v in labels.items()})
     card = train_step_reference(dev, sd, feats, labels)
     host_out = on_host.result()
     gaps = {}
@@ -1471,7 +1514,279 @@ def train_phase(dev, host):
 
 
 # ---------------------------------------------------------------------------
-# 5c. the benchmark entry
+# 5c. the RL loop and distillation
+
+LOOP_MOVE_RE = re.compile(r";([BW])\[(?:[a-s]{2})?\](?:TV\[(\d+)\]"
+                          r"P\[([^\]]+)\])?V\[(-?\d\.\d{4})\]")
+LOOP_SGF_RE = re.compile(
+    r"^\(;GM\[1\]FF\[4\]DT\[[^\]]*\]SZ\[19\]RU\[Chinese\]KM\[-?\d+\.\d\]"
+    r"RE\[(?:[BW]\+\d+\.\d|0)\]"
+    r"((?:;[BW]\[(?:[a-s]{2})?\](?:TV\[\d+\]P\[[^\]]+\])?V\[-?\d\.\d{4}\])+)"
+    r"(?:TB(?:\[[a-s]{2}\])+)?(?:TW(?:\[[a-s]{2}\])+)?\)$")
+
+
+def check_loop_sgf(line: str, rollouts: int) -> tuple[int, int]:
+    """Raise unless ``line`` is a well-formed record of the loop's actor:
+    policy-play moves (``V[...]``) and ex-it moves (``TV[n]P[...]V[...]``,
+    ``n`` at most ``rollouts``); returns (moves, ex-it moves)."""
+    m = LOOP_SGF_RE.match(line)
+    check(m, f"malformed SGF line: {line[:200]}")
+    moves = LOOP_MOVE_RE.findall(m.group(1))
+    searched = 0
+    for i, (color, tv, blob, value) in enumerate(moves):
+        check(color == "BW"[i % 2] and -1.0 <= float(value) <= 1.0,
+              f"bad move {i} in SGF line: {line[:200]}")
+        if tv:
+            policy = np.frombuffer(base64.b85decode(blob), np.float16)
+            check(1 < int(tv) <= rollouts and policy.shape == (362,)
+                  and np.isfinite(policy).all()
+                  and abs(float(policy.astype(np.float32).sum()) - 1.0)
+                  < 0.02, f"bad ex-it move {i} in SGF line: {line[:200]}")
+            searched += 1
+    return len(moves), searched
+
+
+def cli_run(name, argv):
+    """``cli.main(argv)`` with stdout and stderr captured and the launch
+    counts zeroed before and read after: ``(stderr lines, launches,
+    seconds)``; the stderr lines are logged."""
+    import contextlib
+    import io
+
+    from dream_go_torch import cli
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        rc, launches, wall = counted(lambda: cli.main(argv))
+    check(rc == 0, f"{name}: cli.main exited {rc}")
+    lines = stderr.getvalue().splitlines()
+    for line in lines:
+        log(f"  {name}: {line}")
+    return lines, launches, wall
+
+
+def loop_phase(dev):
+    """The closed RL loop through ``cli.main`` at the CLI's width and
+    batch: ``--loop 2 --ex-it --ladder-features``, then ``--loop 3
+    --resume-loop --warm-restart`` on the same directory; each run with
+    the launch counts zeroed before and read after."""
+    import math
+    import shutil
+
+    from dream_go_torch import cli
+    from dream_go_torch.train.train_loop import Trainer
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, LOOP_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--out-dir", out, "--ex-it", "--ladder-features",
+            "--num-games", str(LOOP_GAMES), "--num-rollout",
+            str(LOOP_ROLLOUTS), "--max-moves", str(LOOP_MOVES),
+            "--bank-games", str(LOOP_BANK), "--seed", "0"]
+    args = cli.build_parser().parse_args(["--loop", "2", *argv])
+    check((args.num_channels, args.num_blocks, args.batch_size,
+           args.positions_per_game) == (128, 9, 2048, 8),
+          "the loop phase runs the CLI's width and batch")
+    first, launches, wall = cli_run("--loop 2", ["--loop", "2", *argv])
+    phase("loop", t_phase, f"--loop 2: {wall:.2f} s, launches {launches}")
+    t0 = time.monotonic()
+    second, launches_r, wall_r = cli_run(
+        "--loop 3 --resume-loop", ["--loop", "3", "--resume-loop",
+                                   "--warm-restart", *argv])
+    phase("loop", t0, f"--loop 3 --resume-loop --warm-restart: "
+          f"{wall_r:.2f} s, launches {launches_r}")
+    stopped = any("learning rate floor reached" in m for m in first + second)
+
+    for gen in range(3):
+        for name in (f"gen_{gen:04d}.sgf", f"ckpt_{gen:04d}",
+                     f"weights_{gen:04d}.json"):
+            check(os.path.exists(os.path.join(out, name)),
+                  f"the loop wrote no {name}")
+        with open(os.path.join(out, f"gen_{gen:04d}.sgf")) as fh:
+            lines = [line.strip() for line in fh if line.strip()]
+        check(len(lines) == LOOP_GAMES, f"gen {gen}: {len(lines)} games")
+        counts = [check_loop_sgf(line, LOOP_ROLLOUTS) for line in lines]
+        log(f"  gen {gen}: {sum(c[0] for c in counts)} moves, "
+            f"{sum(c[1] for c in counts)} re-searched by ex-it")
+    check(os.path.exists(os.path.join(out, "dream_go.json")),
+          "the loop wrote no dream_go.json")
+    steps = [Trainer.restore(os.path.join(out, f"ckpt_{g:04d}"),
+                             device=dev).step for g in (1, 2)]
+    check(stopped or steps == [2 * LOOP_STEPS, 3 * LOOP_STEPS],
+          f"steps after the runs: {steps}")
+    check(any("resume: generation 2 from ckpt_0001" in m for m in second)
+          and any("warm restart" in m for m in second),
+          "the resume and warm-restart lines are missing")
+    losses = [float(m) for m in re.findall(
+        r"gen \d+: loss (\S+)", "\n".join(first + second))]
+    check(len(losses) == 3 and all(math.isfinite(v) for v in losses),
+          f"losses {losses}")
+    for k in ("leaf_step", "ladder_planes", "board_features_raw"):
+        check(launches[k] + launches_r[k] > 0,
+              f"the loop never launched {k}: {launches}, {launches_r}")
+    check(launches["env_step"] == 0 and launches_r["env_step"] == 0,
+          "the loop launched env_step")
+    t0 = time.monotonic()
+    got, launches_g = gtp_session(
+        ["--gtp", "--num-rollout", str(TRAIN_ROLLOUTS), "--seed", "0",
+         "--weights", os.path.join(out, "weights_0002.json")],
+        ["clear_board", "genmove b", "quit"])
+    check(launches_g["leaf_step"] >= TRAIN_ROLLOUTS,
+          f"genmove from weights_0002.json: launches {launches_g}")
+    phase("loop", t0, f"weights_0002.json serves: {got[1][1]!r} in "
+          f"{got[1][2]:.2f} s, launches {launches_g}")
+    parts = {}
+    for line in first + second:
+        if m := re.search(r"gen (\d+): .*\[play ([\d.]+)s, ex-it "
+                          r"([\d.]+)s\]", line):
+            parts.setdefault(int(m.group(1)), []).extend(
+                float(x) for x in m.groups()[1:])
+        elif m := re.search(r"gen (\d+): loss .*\[bank ([\d.]+)s, train "
+                            r"([\d.]+)s\]", line):
+            parts.setdefault(int(m.group(1)), []).extend(
+                float(x) for x in m.groups()[1:])
+    check(sorted(parts) == [0, 1, 2] and all(len(v) == 4
+                                             for v in parts.values()),
+          f"generation timings {parts}")
+    phase("loop", t_phase, f"128x9, B=2048, {LOOP_GAMES} games x "
+          f"{LOOP_MOVES} moves a generation, ex-it at {LOOP_ROLLOUTS} "
+          f"rollouts, banks of {LOOP_BANK} games, {LOOP_STEPS} steps a "
+          f"generation; steps {steps}; losses {losses}; seconds a "
+          f"generation (play / ex-it / bank / train): " + "; ".join(
+              f"gen {g} {' / '.join(f'{x:.2f}' for x in v)}"
+              for g, v in sorted(parts.items()))
+          + f"; launches {launches} + {launches_r}")
+
+
+def teacher_weights():
+    """The distill phase's random teacher: ``random_weights`` at 192 x 15,
+    each conv kernel rescaled to a variance of 2 / fan-in (the second of
+    each block to a quarter of that scale), so that 31 layers keep its
+    activations in range."""
+    from dream_go_torch.models import leela_zero as LZ
+
+    w = LZ.random_weights(DISTILL_FILTERS, DISTILL_BLOCKS, seed=0)
+
+    def scale(p, fan_in, gain=1.0):
+        k = p["kernel"]
+        p["kernel"] = k * np.float32(
+            gain * np.sqrt(2.0 / (k.shape[0] ** 2 * fan_in)) / 0.1)
+
+    scale(w["input"], 18)
+    for c1, c2 in w["blocks"]:
+        scale(c1, DISTILL_FILTERS)
+        scale(c2, DISTILL_FILTERS, 0.25)
+    scale(w["policy_conv"], DISTILL_FILTERS)
+    scale(w["value_conv"], DISTILL_FILTERS)
+    return w
+
+
+def distill_phase(dev):
+    """Leela-zero distillation: the teacher's file written and parsed,
+    its card outputs held against the CPU's on 8 positions, then
+    ``--start gen_0047.sgf --lz-weights`` through ``cli.main`` with the
+    launch counts zeroed before and read after; every loss finite and
+    ``has_ownership`` all zero; the per-batch replay and teacher timed."""
+    import math
+    import shutil
+    import statistics
+
+    from dream_go_torch.models import leela_zero as LZ
+    from dream_go_torch.train.distill import DistillationSource
+    from dream_go_torch.train.pipeline import ExampleSource
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, DISTILL_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    path = os.path.join(out, "lz.txt")
+    w = teacher_weights()
+    t0 = time.monotonic()
+    LZ.save_weights(w, path)
+    t_write = time.monotonic() - t0
+    t0 = time.monotonic()
+    loaded = LZ.load_weights(path)
+    t_parse = time.monotonic() - t0
+    check((loaded["channels"], loaded["num_blocks"]) ==
+          (DISTILL_FILTERS, DISTILL_BLOCKS), "the teacher file's shape")
+    phase("distill", t_phase, f"teacher {DISTILL_FILTERS} x "
+          f"{DISTILL_BLOCKS}: {os.path.getsize(path) / 1e6:.1f} MB written "
+          f"in {t_write:.2f} s, parsed in {t_parse:.2f} s")
+
+    data = os.path.join(root, TRAIN_DATA[2])
+    with open(data) as fh:
+        lines = [line.strip() for line in fh if line.strip()]
+    t0 = time.monotonic()
+    probe = ExampleSource(lines, 8, seed=3, augment=False, lz_history=True,
+                          device=dev)
+    _, labels = next(iter(probe.batches(1)))
+    lz = labels["lz_features"]
+    card = LZ.teacher(loaded, dev)
+    v, p = card(lz)
+    torch.cuda.synchronize()
+    v32, p32 = LZ.teacher(loaded, "cpu")(lz.cpu())
+    dv = float((v.cpu() - v32).abs().max())
+    dp = float((p.cpu() - p32).abs().max())
+    check(dv <= TEACHER_VALUE_ATOL and dp <= TEACHER_POLICY_ATOL,
+          f"card teacher vs cpu: value {dv:.3e}, policy {dp:.3e}")
+    check(float(v32.abs().max()) < 0.999 and float(p32.max()) < 0.5,
+          "the teacher saturates")
+    phase("distill", t0, f"card teacher == cpu on 8 positions: max "
+          f"|value| {dv:.3e} (limit {TEACHER_VALUE_ATOL}), max |policy| "
+          f"{dp:.3e} (limit {TEACHER_POLICY_ATOL}); values "
+          f"{[round(x, 4) for x in v32.tolist()]}")
+
+    ckpt, metrics = (os.path.join(out, n) for n in ("ckpt", "m.jsonl"))
+    t0 = time.monotonic()
+    _, launches, wall = cli_run("--start --lz-weights", [
+        "--start", data, "--lz-weights", path, "--steps",
+        str(DISTILL_STEPS), "--checkpoint", ckpt, "--metrics", metrics,
+        "--seed", "0"])
+    with open(metrics) as fh:
+        records = [json.loads(line) for line in fh]
+    check([r["step"] for r in records] ==
+          list(range(1, DISTILL_STEPS + 1)), "distill metrics steps")
+    check(all(math.isfinite(r[k]) for r in records for k in r),
+          "a non-finite distill metric")
+    check(launches["board_features_raw"] > 0,
+          f"the distill batches did not launch K3: {launches}")
+    t = [r["time"] for r in records]
+    step_ms = 1e3 * statistics.median(b - a for a, b in zip(t, t[1:]))
+    phase("distill", t0, f"--start --lz-weights, {DISTILL_STEPS} steps: "
+          f"{wall:.2f} s, a step {step_ms:.1f} ms (median of "
+          f"{DISTILL_STEPS - 1}), losses "
+          f"{[round(r['loss'], 4) for r in records]}, launches {launches}")
+
+    source = ExampleSource(lines, 2048, seed=4, lz_history=True, device=dev)
+    distilled = DistillationSource(source, loaded)
+    t1 = time.monotonic()
+    _, lab = next(iter(distilled.batches(1)))
+    torch.cuda.synchronize()
+    batch_ms = 1e3 * (time.monotonic() - t1)
+    t1 = time.monotonic()
+    next(iter(source.batches(1)))
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.monotonic() - t1)
+    check(float(lab["has_ownership"].abs().max()) == 0.0,
+          "distilled labels keep ownership")
+    check(bool(torch.isfinite(lab["value"]).all())
+          and float((lab["policy"].sum(-1) - 1).abs().max()) < 1e-4,
+          "distilled labels are not finite distributions")
+    lz = torch.zeros(2048, 19, 19, 18, device=dev)
+    teacher_ms = events_ms(lambda: distilled.teacher(lz), 1)
+    phase("distill", t_phase, f"{DISTILL_FILTERS}x{DISTILL_BLOCKS} teacher: "
+          f"file {t_write:.2f} s written, {t_parse:.2f} s parsed; a step "
+          f"{step_ms:.1f} ms; a distilled batch of 2048 examples "
+          f"{batch_ms:.1f} ms (the first, its replay cold), then a "
+          f"per-batch replay of 2048 games with the planes "
+          f"{replay_ms:.1f} ms and the teacher alone {teacher_ms:.1f} ms")
+
+
+# ---------------------------------------------------------------------------
+# 5d. the benchmark entry
 
 
 def bench_phase():
@@ -1846,6 +2161,8 @@ def main() -> int:
         launches = selfplay_phase(dev)
         serve_phase(dev, host)
         train_phase(dev, host)
+    loop_phase(dev)
+    distill_phase(dev)
     _, bench_launches = bench_phase()
     launches["env_step"] = bench_launches["env_step"]
     sanity_phase(dev)

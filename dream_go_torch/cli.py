@@ -18,6 +18,10 @@ the benchmark and the trainer.
     python -m dream_go_torch.cli --dump --checkpoint CKPT > dream_go.json
     python -m dream_go_torch.cli --print [TENSOR...] \
         (--weights dream_go.json | --checkpoint CKPT)
+    python -m dream_go_torch.cli --start DATA --lz-weights LZ.txt[.gz] ...
+    python -m dream_go_torch.cli --loop GENS [--out-dir DIR] [--ex-it] \
+        [--resume-loop [--warm-restart]] [--num-games G] [--num-rollout R]
+    python -m dream_go_torch.cli ... --profile DIR
 
 With no mode flag, or with ``--gtp``, the CLI serves GTP on stdin/stdout
 (`dream_go_tpu/cli.py:290-294`): every genmove searches ``--num-rollout``
@@ -60,12 +64,28 @@ tensors.  Batches of ``--batch-size`` examples come from an example bank of
 (``--bank-games 0``: fresh games every batch); ``--metrics`` appends one
 JSON line a step.  On ``cuda`` the tower trains in bf16 with float32
 parameters, and the bank's planes come from the feature and ladder
-kernels.
+kernels.  With ``--lz-weights`` (on ``--start``, ``--resume`` and
+``--verify``) the value and policy labels come from a leela-zero teacher
+over the examples' LZ history planes (`dream_go_tpu/cli.py:402-407`): each
+batch replays ``--batch-size`` fresh games, one position each.
+
+``--loop GENS`` runs the closed RL loop (`dream_go_tpu/cli.py:298-323`)
+into ``--out-dir``: each generation plays ``--num-games`` policy games
+with the learner's current weights (``--ex-it`` re-searches ex-it
+positions at ``--num-rollout`` simulations), trains 256 steps on the
+balanced replay window and writes ``gen_NNNN.sgf``, ``ckpt_NNNN``,
+``dream_go.json`` and ``weights_NNNN.json``; ``--resume-loop`` continues
+from the directory's last checkpoint, and ``--warm-restart`` then restarts
+the learning-rate schedule at the warm-start rate.  ``--max-moves`` caps
+the loop's games too.  ``--profile DIR`` records the whole command with
+``torch.profiler`` (CPU and, where there is one, CUDA activity) into
+``DIR/trace.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -94,12 +114,28 @@ def build_parser() -> argparse.ArgumentParser:
                       help="mean metrics of --checkpoint on a big-SGF file")
     mode.add_argument("--dump", action="store_true",
                       help="print the weights JSON of --checkpoint")
+    mode.add_argument("--loop", type=int, metavar="GENS",
+                      help="run the closed RL loop for GENS generations")
     mode.add_argument("--print", dest="print_tensors", nargs="*",
                       metavar="TENSOR",
                       help="print each tensor's mean and std (no names) or "
                            "the named tensors' values of --weights or "
                            "--checkpoint")
     parser.add_argument("--checkpoint", help="trainer checkpoint file")
+    parser.add_argument("--lz-weights", metavar="FILE",
+                        help="leela-zero weights: distil their value and "
+                             "policy (--start, --resume, --verify)")
+    parser.add_argument("--out-dir", default="models/rl",
+                        help="output directory of --loop")
+    parser.add_argument("--resume-loop", action="store_true",
+                        help="--loop: continue from the out-dir's last "
+                             "checkpointed generation")
+    parser.add_argument("--warm-restart", action="store_true",
+                        help="--loop --resume-loop: restart the learning-"
+                             "rate schedule at the warm-start rate")
+    parser.add_argument("--profile", metavar="DIR",
+                        help="write a torch.profiler trace of the command "
+                             "to DIR/trace.json")
     parser.add_argument("--metrics", metavar="FILE",
                         help="append training metrics JSONL to FILE")
     parser.add_argument("--steps", type=int, default=1000)
@@ -334,9 +370,10 @@ def trainer_procedures(args) -> list[str]:
 
     source = ExampleSource(lines, batch_size=args.batch_size, seed=args.seed,
                            ladder_features=args.ladder_features,
+                           lz_history=bool(args.lz_weights),
                            positions_per_game=args.positions_per_game,
                            bank_games=args.bank_games, device=device)
-    if args.bank_games:
+    if source.bank_games:
         t0 = time.monotonic()
         feats, _ = source.build_bank()
         if device.type == "cuda":
@@ -344,6 +381,10 @@ def trainer_procedures(args) -> list[str]:
         print(f"example bank: {feats.shape[0]} examples of "
               f"{args.bank_games} games in {time.monotonic() - t0:.3f} s",
               file=sys.stderr, flush=True)
+    if args.lz_weights:
+        from .train.distill import DistillationSource
+
+        source = DistillationSource(source, args.lz_weights)
     if args.verify:
         return [json.dumps(trainer.evaluate(source, num_batches=32))]
     trainer.fit(source, num_steps=args.steps,
@@ -354,15 +395,65 @@ def trainer_procedures(args) -> list[str]:
     return []
 
 
+def rl_loop(args):
+    """``--loop GENS``: the closed RL loop into ``--out-dir``."""
+    from .config import TrainConfig
+    from .train.rl_loop import RLLoopConfig, run_rl_loop
+
+    if args.ladder_features is None:
+        args.ladder_features = ModelConfig.ladder_features
+    extra = {} if args.max_moves is None else {"max_moves": args.max_moves}
+    run_rl_loop(
+        ModelConfig(num_channels=args.num_channels,
+                    num_blocks=args.num_blocks,
+                    num_samples=args.num_samples,
+                    ladder_features=args.ladder_features),
+        TrainConfig(batch_size=args.batch_size),
+        SelfPlayConfig(num_games=args.num_games,
+                       num_rollout=args.num_rollout, komi=args.komi,
+                       ladder_features=args.ladder_features, **extra),
+        SearchConfig(num_rollout=args.num_rollout,
+                     ladder_features=args.ladder_features,
+                     fused=False if args.no_fused else None,
+                     adaptive=False if args.no_adaptive else None),
+        RLLoopConfig(generations=args.loop,
+                     games_per_generation=args.num_games,
+                     ex_it=args.ex_it, out_dir=args.out_dir,
+                     seed=args.seed,
+                     positions_per_game=args.positions_per_game,
+                     bank_games=args.bank_games,
+                     resume=args.resume_loop,
+                     warm_restart=args.warm_restart),
+        device=args.device)
+
+
 def main(argv=None):
     parser = build_parser()
     args, rest = parser.parse_known_args(argv)
+    if rest and not args.bench:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if not args.profile:
+        return _run(args, rest)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    with profile(activities=activities) as prof:
+        rc = _run(args, rest)
+    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    return rc
+
+
+def _run(args, rest) -> int:
     if args.bench:
         from . import bench
 
         return bench.main(["--device", args.device] + rest)
-    if rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.loop:
+        rl_loop(args)
+        return 0
     if args.print_tensors is not None:
         lines = [print_tensors(args)]
     elif args.start or args.resume or args.verify or args.dump:

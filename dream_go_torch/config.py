@@ -1,9 +1,10 @@
 """Search, self-play and model configuration.
 
 Port of `dream_go_tpu/config.py` (``Schedule``, ``SearchConfig``,
-``SelfPlayConfig``, ``ModelConfig``, ``TrainConfig``), with the fields the
-port's code reads; the others (ex-it, ...) come with the code that reads
-them.
+``SelfPlayConfig``, ``ModelConfig``, ``TrainConfig``, ``Config``), with the
+fields the port's code reads (the JAX package's ``softmax_temperature``,
+``vloss_cnt``, ``batch_size``, ``root_symmetries``, ``deterministic`` and
+``resign_threshold`` are read by no code of the port).
 Schedules are piecewise-linear tables over the total visit count, written
 ``"100=1.87,200=1.49"``;
 :meth:`Schedule.at` evaluates one on a tensor with the same arithmetic as
@@ -13,6 +14,8 @@ Schedules are piecewise-linear tables over the total visit count, written
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Any
 
 import numpy as np
 import torch
@@ -71,6 +74,27 @@ class Schedule:
         return float(np.interp(visits, xs, ys))
 
 
+def _env_override(name: str, default: Any) -> Any:
+    """``default``, or its value from ``DG_<NAME>``, else from the
+    ``NAME=VALUE`` pairs of ``DG_OPTS`` (separated by ``;``), parsed as
+    ``default``'s type (`config.rs`'s environment handling)."""
+    opts = os.environ.get("DG_OPTS", "")
+    value = None
+    for pair in opts.split(";"):
+        if "=" in pair:
+            k, v = pair.split("=", 1)
+            if k.strip().upper() == name.upper():
+                value = v.strip()
+    value = os.environ.get(f"DG_{name.upper()}", value)
+    if value is None:
+        return default
+    if isinstance(default, Schedule):
+        return Schedule.parse(value)
+    if isinstance(default, bool):
+        return value.lower() in ("1", "true", "yes")
+    return type(default)(value)
+
+
 @dataclasses.dataclass(frozen=True)
 class SearchConfig:
     """MCTS hyperparameters (defaults match `src/libdg_utils/config.rs`)."""
@@ -85,6 +109,7 @@ class SearchConfig:
     dirichlet_noise: float = 0.25
     dirichlet_alpha: float = 0.03
     temperature: float = 0.7
+    max_nodes: int = 0                 # tree capacity; 0 = num_rollout + 8
     cutoff_percentile: float = 0.5
     adaptive: bool | None = None       # EARLY-C; None = on for cuda
     children_slots: int = 32           # sparse child slots per non-root node
@@ -105,6 +130,9 @@ class SearchConfig:
     step_kernel: bool = False          # unfused leaves step through the
     #                                    env_step kernel (one-hot weights)
     feature_set: str = "v1"            # input plane family ("v1" / "v2")
+
+    def resolved_max_nodes(self) -> int:
+        return self.max_nodes if self.max_nodes > 0 else self.num_rollout + 8
 
     def resolve_auto(self, device) -> "SearchConfig":
         """Fill the ``None`` (auto) knobs for ``device``: the fused leaf
@@ -135,11 +163,15 @@ class SelfPlayConfig:
 
     num_games: int = 1024
     num_rollout: int = 1600
+    ex_it: bool = False
+    ex_it_fraction: float = 0.05       # self_play.rs:315-319
     max_moves: int = 722
     temperature_moves: int = 8
     komi: float = 7.5
     random_komi: bool = False
     history_len: int = 64
+    ladder_features: bool = False      # planes 30/31 in the RL loop's
+    #                                    actor and example banks
     winrate_rollouts: bool = True
     winrate_momentum: float = 0.2
 
@@ -179,3 +211,37 @@ class TrainConfig:
     shuffle_buffer: int = 262_144
     plateau_window: int = 4096         # hooks/learning_rate.py:34
     checkpoint_every: int = 10_000
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The four configurations together (`config.rs`'s globals)."""
+
+    search: SearchConfig = dataclasses.field(default_factory=SearchConfig)
+    self_play: SelfPlayConfig = dataclasses.field(
+        default_factory=SelfPlayConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+    @staticmethod
+    def from_env() -> "Config":
+        """The default configuration with the ``DG_OPTS`` / ``DG_*``
+        overrides of the search's and self-play's knobs applied."""
+        search = SearchConfig(
+            num_rollout=_env_override("NUM_ROLLOUT", SearchConfig.num_rollout),
+            uct_exp=_env_override("UCT_EXP",
+                                  Schedule.parse("44=1.87,2536=1.48")),
+            fpu_reduce=_env_override("FPU_REDUCE",
+                                     Schedule.parse("44=0.67,3817=0.46")),
+            critical_value=_env_override(
+                "CRITICAL_VALUE", Schedule.parse("1=0.0,44=1.49,200=2.12")),
+            dirichlet_noise=_env_override("DIRICHLET_NOISE",
+                                          SearchConfig.dirichlet_noise),
+            temperature=_env_override("TEMPERATURE",
+                                      SearchConfig.temperature),
+        )
+        self_play = SelfPlayConfig(
+            num_games=_env_override("NUM_GAMES", SelfPlayConfig.num_games),
+            num_rollout=search.num_rollout,
+        )
+        return Config(search=search, self_play=self_play)

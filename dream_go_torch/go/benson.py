@@ -99,6 +99,13 @@ def is_scorable(state: GoState, life_=None) -> torch.Tensor:
     return ok.all(-1)
 
 
+def scorable_territory(state: GoState, life_=None) -> torch.Tensor:
+    """bool[B, 361]: the points Benson-decided (alive or eye) for either
+    colour (`score.rs:120-130` ``get_scorable_territory``)."""
+    alive_b, eye_b, alive_w, eye_w = life_ or life(state)
+    return alive_b | eye_b | alive_w | eye_w
+
+
 def clear_dead(stones: torch.Tensor, chain_id: torch.Tensor) -> torch.Tensor:
     """Remove every stone that is not unconditionally alive
     (`score.rs:197-211`)."""

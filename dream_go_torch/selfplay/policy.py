@@ -29,6 +29,7 @@ from ..go import engine, features
 from ..go.engine import GoState
 from ..go.options import scoring_mask
 from ..mcts.choose import choose
+from ..mcts.predictor import symmetrize
 from .records import Played, game_result_sgf
 
 
@@ -52,12 +53,13 @@ def _final_territory(states: GoState) -> torch.Tensor:
 
 
 class PolicyPlayer:
-    """A predictor with its sampling settings."""
+    """A predictor with its sampling settings; with ``sym_average`` each
+    evaluation averages the eight symmetries."""
 
     def __init__(self, predictor, *, temperature: float = 0.7,
-                 cutoff_percentile: float = 0.5,
+                 cutoff_percentile: float = 0.5, sym_average: bool = False,
                  ladder_features: bool = False, feature_set: str = "v1"):
-        self.predict = predictor
+        self.predict = symmetrize(predictor) if sym_average else predictor
         self.temperature = temperature
         self.cutoff_percentile = cutoff_percentile
         self.ladder_features = ladder_features

@@ -33,6 +33,7 @@ from ..config import SearchConfig, SelfPlayConfig
 from ..go import benson as bn
 from ..go import engine
 from ..mcts import search as S
+from ..mcts.predictor import symmetrize
 from .policy import PolicyPlayer, _build_move_fn, _final_territory, random_komi
 from .records import Played, game_result_sgf
 
@@ -57,8 +58,11 @@ def _build_search_move_fn(predictor, search_cfg: SearchConfig,
     previous move's trees (`tree.rs:1225-1249`).  With ``reuse_budget`` a
     capacity of ``num_sims + 8`` always suffices (a subtree's node count
     never exceeds its root's visits).  Without ``tree_reuse`` every move
-    searches fresh trees and the second function is None."""
-    if not tree_reuse:
+    searches fresh trees and the second function is None.
+    ``search_cfg.max_nodes`` overrides either capacity."""
+    if search_cfg.max_nodes > 0:
+        capacity = search_cfg.max_nodes
+    elif not tree_reuse:
         capacity = num_sims + 1
     elif search_cfg.reuse_budget:
         capacity = num_sims + 8
@@ -134,11 +138,14 @@ def _initial_states(cfg: SelfPlayConfig, batch: int, seed: int, dev):
 
 def search_self_play(predictor, cfg: SelfPlayConfig,
                      search_cfg: SearchConfig | None = None, seed: int = 0,
-                     tree_reuse: bool = True,
+                     sym_average: bool = False, tree_reuse: bool = True,
                      device="cuda") -> list[str]:
     """Play ``cfg.num_games`` MCTS games in one lockstep batch until the
-    last one ends (or ``max_moves``); returns their SGF lines."""
+    last one ends (or ``max_moves``); returns their SGF lines.  With
+    ``sym_average`` every evaluation averages the eight symmetries."""
     search_cfg = search_cfg or SearchConfig()
+    if sym_average:
+        predictor = symmetrize(predictor)
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     states = _initial_states(cfg, cfg.num_games, seed, dev)
@@ -213,6 +220,7 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
                                 search_cfg: SearchConfig | None = None,
                                 seed: int = 0, batch: int = 256,
                                 refill_every: int = 8,
+                                sym_average: bool = False,
                                 stats: dict | None = None,
                                 device="cuda",
                                 game_times: list | None = None,
@@ -228,9 +236,12 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
     completed game.  ``deadline_s`` stops the loop that many seconds after
     the first move returns, with the games completed so far.
     ``initial_states`` starts from prepared boards (their batch), such as
-    those of :func:`_policy_stagger`.
+    those of :func:`_policy_stagger`.  With ``sym_average`` every
+    evaluation averages the eight symmetries.
     """
     search_cfg = search_cfg or SearchConfig()
+    if sym_average:
+        predictor = symmetrize(predictor)
     dev = torch.device(device)
     rng_np = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)

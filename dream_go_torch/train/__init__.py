@@ -1,2 +1,3 @@
 """Training: losses, the plateau LR scheduler, metrics, the example
-pipeline and the trainer."""
+pipeline, the trainer, leela-zero distillation, the closed RL loop and
+the heat map."""

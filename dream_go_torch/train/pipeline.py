@@ -19,7 +19,12 @@ batched on the device, with the augmentation's draws from a
 - value label +1 if the player to move won else -1; ownership +-1 relative
   to the player to move from TB/TW (`extract_example.rs:329-371`);
 - a random D8 symmetry of features, policy and ownership, and 5% history
-  plane dropout (`input_fn.py:101-138`).
+  plane dropout (`input_fn.py:101-138`);
+- with ``lz_history`` (distillation), each example also carries its
+  leela-zero planes, ``labels["lz_features"]`` f32[B, 19, 19, 18], under
+  the same symmetry; the history ring is single-target, so that source
+  replays ``batch_size`` fresh games every batch (one position each, no
+  bank).
 
 On ``cuda`` the V1 planes come from the feature kernel and planes 30/31
 from the exact ladder kernel; on the CPU from the plain planes and the
@@ -38,7 +43,8 @@ import torch
 from ..go import engine, features
 from ..go.engine import GoState
 from ..go.topology import SYM
-from ..selfplay.replay import states_at, states_at_multi
+from ..selfplay.replay import (lz_features, states_and_stone_history_at,
+                               states_at, states_at_multi)
 from ..utils import sgf
 
 #: boards a feature extraction takes at a time: the batch at which the
@@ -144,16 +150,21 @@ class ExampleSource:
 
     ``use_native=None`` takes the C++ extractor (:mod:`..native`) where
     ``g++`` exists.  ``self.gen`` draws the augmentation, ``self.rng`` (numpy)
-    everything on the host."""
+    everything on the host.  ``lz_history`` adds the leela-zero planes to
+    the labels and forces one position a game and no bank."""
 
     def __init__(self, lines: list[str], batch_size: int, seed: int = 0,
                  history_len: int = 16, augment: bool = True,
-                 ladder_features: bool = False,
+                 ladder_features: bool = False, lz_history: bool = False,
                  use_native: bool | None = None, feature_set: str = "v1",
                  positions_per_game: int = 1, bank_games: int = 0,
                  device="cuda"):
         self.ladder_features = ladder_features
+        self.lz_history = lz_history
         self.feature_set = feature_set
+        if lz_history:
+            positions_per_game = 1  # the history ring is single-target
+            bank_games = 0
         while batch_size % positions_per_game:
             positions_per_game -= 1  # largest divisor of the batch size
         self.positions_per_game = positions_per_game
@@ -190,7 +201,8 @@ class ExampleSource:
         for _ in range(num_batches):
             yield _device_batch(*self._on_device(*self._sample_arrays(g)),
                                 self.gen, self.history_len, self.augment,
-                                self.ladder_features, self.feature_set)
+                                self.ladder_features, self.feature_set,
+                                self.lz_history)
 
     def build_bank(self):
         """The example bank, ``(features, labels)``, built at the first
@@ -277,13 +289,21 @@ def planes(states: GoState, ladder_features: bool,
 
 
 def _device_batch(moves, targets, komi, labels, gen, history_len, augment,
-                  ladder_features=False, feature_set="v1"):
+                  ladder_features=False, feature_set="v1", lz_history=False):
     """Replay -> features -> random D8 augmentation + history dropout.
 
     ``targets`` may be int32[G] (one example per replayed game) or
     int32[G, K] (K examples per replay: the batch is G*K examples in
-    game-major order, as the host's labels are)."""
-    if targets.dim() == 2:
+    game-major order, as the host's labels are).  With ``lz_history`` the
+    labels gain ``lz_features``, the leela-zero planes of the first target
+    of each game."""
+    if lz_history:
+        if targets.dim() == 2:
+            targets = targets[:, 0]
+        states, hist = states_and_stone_history_at(moves, targets, komi,
+                                                   history_len)
+        labels = dict(labels, lz_features=lz_features(states, hist))
+    elif targets.dim() == 2:
         g, k = targets.shape
         states = states_at_multi(moves, targets, komi, history_len)
         states = GoState(**{name: v.reshape((g * k,) + v.shape[2:])
@@ -313,6 +333,10 @@ def _augment(feats, labels, gen, feature_set, sym=None, u=None):
     labels = dict(labels, policy=torch.cat(
         [torch.take_along_dim(pol[:, :361], perm, 1), pol[:, 361:]], 1),
         ownership=torch.take_along_dim(labels["ownership"], perm, 1))
+    if "lz_features" in labels:
+        lz = labels["lz_features"].reshape(b, 361, 18)
+        labels["lz_features"] = torch.take_along_dim(
+            lz, perm[:, :, None], 1).reshape(b, 19, 19, 18)
     if feature_set == "v1":
         keep = torch.ones(feats.shape[-1], device=feats.device)
         keep[3:5] = 0.0

@@ -565,3 +565,71 @@ def test_train_step_bf16_close_to_float32(cuda_device):
         a, b = got["bfloat16"][k], got["float32"][k]
         assert math.isfinite(a) and abs(a - b) <= BF16_LOSS_RTOL * abs(b), \
             (k, a, b)
+
+
+#: the card's float32 teacher (TF32 off) against the CPU's: cuDNN and the
+#: CPU sum the convolutions in other orders
+LZ_VALUE_ATOL, LZ_POLICY_ATOL = 1e-4, 1e-5
+
+
+@pytest.mark.cuda
+def test_rl_loop_generation_on_the_card(cuda_device, tmp_path):
+    """One generation of the RL loop at 16 x 2, B = 64 on the card: policy
+    play and ex-it with planes 30/31, a bank, 4 steps; its files, a finite
+    loss, and K1, K2 and K3 launched (K4 not)."""
+    import math
+    import os
+    import re
+
+    from dream_go_torch.config import (ModelConfig, SearchConfig,
+                                       SelfPlayConfig, TrainConfig)
+    from dream_go_torch.ops import env_step as E
+    from dream_go_torch.ops import ladder_kernel as LK
+    from dream_go_torch.ops import libs_after as LA
+    from dream_go_torch.train import rl_loop as R
+
+    mods = (L, LK, LA, E)
+    before = [m.launches for m in mods]
+    logs = []
+    trainer = R.run_rl_loop(
+        ModelConfig(num_channels=16, num_blocks=2, num_samples=2,
+                    ladder_features=True),
+        TrainConfig(batch_size=64),
+        SelfPlayConfig(num_games=8, num_rollout=8, max_moves=60,
+                       ladder_features=True),
+        SearchConfig(num_rollout=8, ladder_features=True),
+        R.RLLoopConfig(generations=1, games_per_generation=8,
+                       train_steps_per_generation=4, bank_games=8,
+                       ex_it_batch=64, out_dir=str(tmp_path), seed=0),
+        log_fn=logs.append, device=cuda_device)
+    torch.cuda.synchronize()
+    k1, k2, k3, k4 = (m.launches - b for m, b in zip(mods, before))
+    assert k1 > 0 and k2 > 0 and k3 > 0 and k4 == 0, (k1, k2, k3, k4)
+    assert trainer.step == 4
+    assert sorted(os.listdir(tmp_path)) == [
+        "ckpt_0000", "dream_go.json", "gen_0000.sgf", "weights_0000.json"]
+    loss = float(re.search(r"gen 0: loss (\S+)", "\n".join(logs)).group(1))
+    assert math.isfinite(loss)
+    tower = R.serving_tower(trainer, cuda_device)
+    assert next(tower.parameters()).dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_lz_teacher_on_the_card_matches_cpu(cuda_device):
+    import numpy as np
+
+    from dream_go_torch.models import leela_zero as LZ
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    w = LZ.random_weights(64, 3, seed=1)
+    x = (np.random.default_rng(0).random((8, 19, 19, 18)) > 0.5).astype(
+        np.float32)
+    v, p = LZ.teacher(w, cuda_device)(torch.from_numpy(x).to(cuda_device))
+    v32, p32 = LZ.teacher(w, "cpu")(torch.from_numpy(x))
+    assert v.device.type == "cuda" and v.dtype == torch.float32
+    assert float((v.cpu() - v32).abs().max()) <= LZ_VALUE_ATOL
+    assert float((p.cpu() - p32).abs().max()) <= LZ_POLICY_ATOL
+    # the teacher restores the TF32 settings it turned off
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == tf32

@@ -124,3 +124,21 @@ def test_resolve_auto_keeps_v2_unfused():
         TSC(feature_set="v2", fused=True).resolve_auto("cuda")
     with pytest.raises(ValueError):
         TSC(feature_set="v2", fused=True).resolve_auto("cpu")
+
+
+def test_scorable_territory_matches_jax():
+    """`benson.scorable_territory` on the random and scripted boards (the
+    scripted ones hold a two-eyed group whose stones and eyes are
+    decided)."""
+    from dream_go_tpu.go import benson as JB
+    from dream_go_torch.go import benson as TB
+
+    js = _boards()
+    want = np.asarray(jax.jit(jax.vmap(JB.scorable_territory))(js))
+    ts = B.to_torch(js)
+    got = TB.scorable_territory(ts)
+    assert got.dtype == torch.bool and got.shape == (8, 361)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[6:].sum(-1).min() >= len(EYES_BLACK) + 2
+    np.testing.assert_array_equal(
+        TB.scorable_territory(ts, TB.life(ts)).numpy(), want)

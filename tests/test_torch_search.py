@@ -32,6 +32,7 @@ def _jax_case():
     return js, trees
 
 
+@functools.lru_cache(maxsize=None)
 def _torch_trees(fused):
     js, _ = _jax_case()
     return TS.search(B.to_torch(js), B.det_predictor_torch(),
@@ -160,3 +161,23 @@ def test_two_children_slots_match_jax():
     # some non-root node has both of its slots in use
     assert ((np.asarray(tj.slot_child)[:, 1:] >= 0).sum(-1) == 2).any()
     _assert_trees_equal(tt, tj)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_dump_matches_jax(fused):
+    """`mcts.dump`'s root summary and SGF export of each game of equal
+    trees are the JAX package's strings."""
+    from dream_go_tpu.mcts import dump as JD
+    from dream_go_torch.mcts import dump as TD
+
+    _, tj = _jax_case()
+    tt = _torch_trees(fused)
+    for b in range(4):
+        one = jax.tree_util.tree_map(lambda x: x[b], tj)
+        pretty = TD.to_pretty(tt, game=b)
+        assert pretty == JD.to_pretty(one)
+        assert pretty.startswith(f"Nodes: {int(tt.node_n[b, 0])}, ")
+        assert TD.to_pretty(tt, 3, game=b) == JD.to_pretty(one, 3)
+        assert TD.to_sgf(tt, komi=6.5, game=b) == JD.to_sgf(one, komi=6.5)
+        assert TD.to_sgf(tt, meta=False, min_visits=2, game=b) == \
+            JD.to_sgf(one, meta=False, min_visits=2)

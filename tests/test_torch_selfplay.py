@@ -180,3 +180,48 @@ def test_cli_policy_play_and_lockstep_self_play_on_cpu(capsys):
                     assert mv.num_rollout is None
                 else:
                     assert 1 < mv.num_rollout <= rollouts
+
+
+def test_sym_average_policy_player_matches_jax():
+    """``PolicyPlayer(sym_average=True)``'s move on random boards: the
+    deterministic predictor averaged over the eight symmetries (its dyadic
+    means are exact) gives JAX's values and masked policies.  (Whole games
+    cannot be compared: on the empty board the average is symmetric, so
+    the top moves tie and the two random streams break the tie apart.)"""
+    js = B.random_states(4, [0, 9, 40, 120], 4)
+    kw = dict(sym_average=True, cutoff_percentile=1.0)
+    jfn = JPO._build_move_fn(JPO.PolicyPlayer(B.det_predictor_jax(), **kw))
+    _, _, jv, jp = jfn(js, B.jax.random.PRNGKey(0))
+    tfn = TPO._build_move_fn(TPO.PolicyPlayer(B.det_predictor_torch(), **kw))
+    _, tm, tv, tp = tfn(B.to_torch(js), torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    top = tp.max(-1, keepdim=True).values
+    assert bool((tp.gather(1, tm.long()[:, None]) == top).all())
+    _, _, pv, pp = TPO._build_move_fn(TPO.PolicyPlayer(
+        B.det_predictor_torch()))(B.to_torch(js), torch.Generator())
+    assert not torch.equal(pp, tp)
+
+
+def test_sym_average_search_self_play_matches_jax():
+    """``search_self_play(sym_average=True)``, batch 2 to a 4-move cap, 6
+    rollouts, greedy, the deterministic predictor: equal SGF lines; the
+    continuous driver's ``sym_average`` is the symmetrized predictor."""
+    kw = dict(num_games=2, num_rollout=6, max_moves=4, temperature_moves=0)
+    tcfg = TSC(num_rollout=6, dirichlet_noise=0.0, fused=False,
+               adaptive=False)
+    want = JPL.search_self_play(
+        B.det_predictor_jax(), JSP(**kw),
+        JSC(num_rollout=6, dirichlet_noise=0.0, adaptive=False), seed=0,
+        sym_average=True, tree_reuse=False)
+    got = TPL.search_self_play(B.det_predictor_torch(), TSP(**kw), tcfg,
+                               seed=0, sym_average=True, tree_reuse=False,
+                               device="cpu")
+    assert [_strip_date(g) for g in got] == [_strip_date(w) for w in want]
+    run = lambda pred, **sym: [_strip_date(g) for g in
+                               TPL.search_self_play_continuous(
+                                   pred, TSP(**kw), tcfg, seed=0, batch=2,
+                                   device="cpu", **sym)]
+    cont = run(B.det_predictor_torch(), sym_average=True)
+    assert cont == run(TP.symmetrize(B.det_predictor_torch()))
+    assert cont != run(B.det_predictor_torch())

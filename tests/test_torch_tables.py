@@ -95,7 +95,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("cls,fields", [
     ("TrainConfig", [f.name for f in dataclasses.fields(jcfg.TrainConfig)]),
     ("ModelConfig", ["num_features", "feature_set", "remat"]),
-    ("SearchConfig", ["feature_set"])])
+    ("SearchConfig", ["feature_set"]),
+    ("SearchConfig", ["max_nodes"]),
+    ("SelfPlayConfig", ["ex_it", "ex_it_fraction", "ladder_features"])])
 def test_config_fields_present(cls, fields):
     """The trainer slice's fields exist in the port with JAX's defaults
     (``test_config_defaults_match`` compares the fields both have)."""
