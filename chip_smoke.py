@@ -49,16 +49,16 @@ Phases, in order, each printed with its seconds:
    planes off, planes on (fused), planes on with the feature kernel
    (unfused), unfused leaves stepped by the env-step kernel, and the V2
    plane set (unfused, the predictor on 18 planes), 8 moves each (V2 6);
-   then one deep search, 200 rollouts from 8 boards, whose trees on the card and
+   then one deep search, 100 rollouts from 8 boards, whose trees on the card and
    on the CPU are equal in every field.  The CPU sides of this phase and
-   of the serve phase run in a spawned process of their own while the
-   card runs;
+   of the serve phase run in two spawned processes of their own while
+   the card runs;
 5. self-play, each path with the kernels' launch counts set to 0 just
    before it and read just after, at the full 128 x 9 width with seeded
    random weights:
    - ``python -m dream_go_torch.cli --self-play 256 --continuous
-     --num-rollout 64 --num-games 256 --max-moves 8`` (planes off),
-   - the same with ``--max-moves 16 --ladder-features`` (the main path of
+     --num-rollout 32 --num-games 256 --max-moves 8`` (planes off),
+   - the same with ``--max-moves 8 --ladder-features`` (the main path of
      this slice: leaf_step and the ladder kernel),
    - the unfused product path, ``SearchConfig(fused=False,
      feature_kernel=True, ladder_features=True)``, 64 games x 16 rollouts
@@ -74,11 +74,12 @@ Phases, in order, each printed with its seconds:
      card and on the CPU (computed meanwhile in a process of its own;
      any ``?`` answer fails the run); then ``cli.main(["--gtp", ...])``
      at 128 x 9 on swapped stdin/stdout: ten 100-rollout genmoves, the
-     same position again with one genmove at the default 1600 rollouts
-     and final_score (K1 once per simulation), three genmoves and
+     same position again with one genmove at ``DEEP_ROLLOUTS`` = 400
+     rollouts (cut from the CLI's default 1600) and final_score (K1 once
+     per simulation), three genmoves and
      final_score with ``--weights tests/fixtures/sanity_net.json`` (K2),
      and ``--ponder`` (a move, 2 s, a genmove that continues the
-     pondered tree); then ``--reanalyze`` of eight self-play games of
+     pondered tree); then ``--reanalyze`` of two self-play games of
      the rl20 run at 100 rollouts (every line parses, every patched
      move carries ``TV[100]`` and a 362-entry policy); genmove latency,
      final_score seconds, take()'s wait and positions/s are logged;
@@ -111,6 +112,29 @@ Phases, in order, each printed with its seconds:
      128 x 9, B = 2048 (finite losses, the feature kernel launched), the
      distilled labels without ownership, and the ms of a step, of a
      per-batch replay and of the teacher;
+   - the mesh (the mesh phase): ``torchrun --standalone
+     --nproc-per-node 2 -m dream_go_torch.cli --loop 1 --mesh --ex-it
+     --ladder-features`` at the loop phase's width, batch and cuts, two
+     ranks sharing the card over gloo (1024 examples a rank): the
+     ``mesh:`` line, 32 well-formed games, step 256, a finite loss,
+     ``weights_0000.json``, and K1, K2 and K3b launched (each rank prints
+     its counts, the phase sums them); then one float32 train step at 128
+     x 9, B = 64, on two ranks (data 2, then model 2 with the policy head
+     split) against one rank's, within the train phase's limits, and
+     where a two-rank bf16 step at B = 2048 spends its time (a step on
+     one rank and on two, an all-reduce of a batch norm's statistics and
+     of the gradients); ``entry()`` in bf16 within the sanity net's limits
+     of the CPU's float32; ``dryrun_multichip(1)`` over NCCL (run beside
+     the reference phase).  Every group of ranks joins with a timeout and
+     is killed on overrun;
+   - the tools (the tools phase): the arena over the loop phase's three
+     planes-on generations, in policy play and in 16-rollout search play,
+     cut in games and moves (K2 launched, and K1 in search play);
+     ``eval_accuracy`` of ``weights_0002.json`` on the sample games; 20
+     ``train_supervised`` steps at 128 x 9, batch 512, on
+     ``models/rl20/gen_0047.sgf`` from banks of 64 games (K3b in each
+     bank); ``sgf2score`` of eight rl20 games, card lines equal to the
+     CPU's;
    - the benchmark entry, ``dream_go_torch.bench.main`` in this process
      with ``--full`` and two cuts, ``--selfplay-rollouts 64
      --selfplay-window 60``: the env stage (4096 boards, 151 env-step
@@ -148,8 +172,10 @@ import time
 import numpy as np
 import torch
 
-#: the main path's shapes (planes on); the planes-off run stops earlier
-GAMES, ROLLOUTS, MAX_MOVES = 256, 64, 16
+#: the main path's shapes (planes on), cut for the mesh and tools phases
+#: from 64 rollouts to 32 and from 16 moves to 8 (its games flush every 8
+#: moves, so 12 still took 16 batch moves), and the planes-off run's
+GAMES, ROLLOUTS, MAX_MOVES = 256, 32, 8
 OFF_MOVES = 8
 #: the unfused feature-kernel path, cut in depth
 UNF_GAMES, UNF_ROLLOUTS, UNF_MOVES = 64, 16, 8
@@ -159,25 +185,31 @@ ENV_BATCHES = PARITY_BATCHES + (4096,)
 ENV_CHAIN_BATCH, ENV_CHAIN_STEPS = 256, 200
 #: the step-kernel search path, cut in depth
 STEP_GAMES, STEP_ROLLOUTS, STEP_MOVES = 64, 16, 8
-#: the deep search of the reference phase: 200 rollouts (the production
+#: the deep search of the reference phase: 100 rollouts (the production
 #: budget, 1600, takes ~340 s on the card and ~310 s on the CPU, more than
-#: the smoke's time allows; 400 took ~145 s on a slow host, cut to make
-#: room for the loop and distill phases)
-REF_BOARDS, REF_SIMS = 8, 200
-#: the serve phase: genmoves at 100 rollouts (then one at the CLI's
-#: default 1600), three with the sanity net, seconds of pondering, self-play
-#: games reanalyzed; the card-against-CPU session's rollouts and the move
-#: cap of its loaded game (late in sample game 3, so the greedy scorer
-#: plays ~20 moves)
+#: the smoke's time allows; 400 took ~145 s on a slow host, cut to 200 to
+#: make room for the loop and distill phases, then to 100 for the mesh
+#: and tools phases)
+REF_BOARDS, REF_SIMS = 8, 100
+#: the serve phase: genmoves at 100 rollouts, then one at
+#: ``DEEP_ROLLOUTS`` (cut from the CLI's default 1600, which took 39–63
+#: s, for the mesh and tools phases), three with the sanity net, seconds
+#: of pondering, self-play games reanalyzed (cut from eight); the
+#: card-against-CPU session's rollouts and the move cap of its loaded
+#: game (late in sample game 3, so the greedy scorer plays ~20 moves)
 SERVE_ROLLOUTS, SERVE_GENMOVES, SANITY_GENMOVES = 100, 10, 3
-PONDER_WAIT, REANALYZE_GAMES = 2.0, 8
+DEEP_ROLLOUTS = 400
+PONDER_WAIT, REANALYZE_GAMES = 2.0, 2
 #: the first eight games of `models/rl20/gen_0000.sgf` (generation 0 of the
 #: rl20 run; the generation files themselves are not committed)
 REANALYZE_FILE = "tests/fixtures/rl20_gen0000_first8.sgf"
 SERVE_REF_ROLLOUTS, SERVE_REF_CAP = 16, 380
-#: torch threads of the process that computes the CPU references
-HOST_THREADS = 4
-#: the bench phase's cuts of its self-play stage
+#: the processes that compute the CPU references while the card runs, and
+#: the torch threads of each (two, so that the reference phase's six CPU
+#: runs go two at a time)
+HOST_WORKERS, HOST_THREADS = 2, 3
+#: the bench phase's cuts of its self-play stage (a 20 s window held 3
+#: search moves, fewer than the 4 the bench needs for a rate)
 BENCH_ARGS = ["--device", "cuda", "--full", "--selfplay-rollouts", "64",
               "--selfplay-window", "60"]
 #: the JSON keys of `bench.py:488-508` (the error key aside)
@@ -199,6 +231,24 @@ TRAIN_GENMOVES, TRAIN_ROLLOUTS = 2, 16
 LOOP_DIR = "build/smoke_loop"
 LOOP_GAMES, LOOP_ROLLOUTS, LOOP_MOVES, LOOP_BANK = 32, 16, 120, 256
 LOOP_STEPS = 256
+#: the mesh phase: ``--loop 1 --mesh`` on two ranks sharing the card
+#: (gloo) at the loop phase's cuts, killed after ``MESH_LOOP_TIMEOUT``
+#: seconds (its 256 steps took 95.7 s of the 120 s first allowed, at 374
+#: ms a step); every other group of ranks is killed after
+#: ``MESH_TIMEOUT``; a step's parts timed over these many steps and
+#: collectives
+MESH_DIR = "build/smoke_mesh"
+MESH_RANKS = 2
+MESH_LOOP_TIMEOUT, MESH_TIMEOUT = 240.0, 120.0
+MESH_TIMED_STEPS, MESH_TIMED_REDUCES = 10, 50
+#: the tools phase: arena pairs of the loop phase's three generations,
+#: games a pair and moves a game, in policy play and in 16-rollout search
+#: play; supervised training at 128 x 9 on `models/rl20/gen_0047.sgf`,
+#: from banks of 64 games (its default, a fresh replay of 64 games a
+#: batch, took 2.5 s a step)
+ARENA_GAMES, ARENA_MOVES = 8, 20
+ARENA_SEARCH_GAMES, ARENA_ROLLOUTS, ARENA_SEARCH_MOVES = 4, 16, 1
+SUPERVISED_STEPS, SUPERVISED_BATCH, SUPERVISED_BANK = 20, 512, 64
 #: the distill phase: a random leela-zero teacher at the width of public
 #: leela-zero nets (192 filters, 15 blocks), its kernels rescaled so that
 #: its outputs do not saturate; ``--start --lz-weights`` for a few steps
@@ -796,7 +846,9 @@ def det_predictor():
 #: the reference phase's search configurations: a name, the search
 #: knobs and the game length; the kernel each must launch on the card is
 #: in `reference_phase`.  The runs are cut from 12 moves to 8 (V2, which
-#: runs no kernel, to 6) to make room for the loop and distill phases
+#: runs no kernel, to 6) to make room for the loop and distill phases;
+#: shorter games cost the same, as continuous play flushes finished games
+#: every 8 moves
 REF_VARIANTS = [
     ("planes off, fused", dict(fused=True), 8),
     ("planes on, fused", dict(fused=True, ladder_features=True,
@@ -1155,7 +1207,7 @@ def serve_phase(dev, host):
     """GTP serving and reanalyze on the card: the card's answers and
     annotated lines against the CPU's (computed meanwhile by ``host``, a
     process of its own), then GTP at the full 128 x 9 width (100-rollout genmoves,
-    one at the CLI's default 1600, final_score; the sanity net, whose
+    one at ``DEEP_ROLLOUTS``, final_score; the sanity net, whose
     planes 30/31 run K2; pondering) and reanalyze of real self-play games,
     each with the kernels' launch counts zeroed before and read after."""
     import contextlib
@@ -1195,13 +1247,13 @@ def serve_phase(dev, host):
         check(launches_a["leaf_step"] >= SERVE_ROLLOUTS * SERVE_GENMOVES,
               f"100-rollout genmoves: launches {launches_a}")
         got, launches_b = gtp_session(
-            ["--gtp", "--seed", "0"],
+            ["--gtp", "--num-rollout", str(DEEP_ROLLOUTS), "--seed", "0"],
             ["clear_board"] + [f"play {c} {v}" for c, v in played]
             + ["genmove b", "final_score", "quit"])
-        lat1600 = got[-3][2]
+        lat_deep = got[-3][2]
         score, score_secs = got[-2][1], got[-2][2]
-        check(launches_b["leaf_step"] >= 1600,
-              f"1600-rollout genmove: launches {launches_b}")
+        check(launches_b["leaf_step"] >= DEEP_ROLLOUTS,
+              f"{DEEP_ROLLOUTS}-rollout genmove: launches {launches_b}")
         got, launches_s = gtp_session(
             ["--gtp", "--num-rollout", str(SERVE_ROLLOUTS), "--seed", "0",
              "--weights", "tests/fixtures/sanity_net.json"],
@@ -1243,7 +1295,8 @@ def serve_phase(dev, host):
         phase("serve", t0, f"128x9 net, genmove at {SERVE_ROLLOUTS} "
               f"rollouts median {statistics.median(lat100):.3f} s "
               f"(min {min(lat100):.3f}, max {max(lat100):.3f}; "
-              f"{SERVE_GENMOVES} moves), at 1600 {lat1600:.3f} s, "
+              f"{SERVE_GENMOVES} moves), at {DEEP_ROLLOUTS} "
+              f"{lat_deep:.3f} s, "
               f"final_score {score_secs:.3f} s ({score} after "
               f"{len(played) + 1} moves); launches {launches_a} / "
               f"{launches_b}; sanity net: genmove median "
@@ -1330,30 +1383,85 @@ def train_step_reference(device, sd, feats, labels):
             {k: v.cpu() for k, v in model.state_dict().items()})
 
 
-def train_step_parity(dev, host):
-    """The card's float32 train step (TF32 off) against the CPU's (in
-    ``host``, a process of its own) from the same weights and batch:
-    losses within ``STEP_LOSS_RTOL``, accuracies within one example,
-    the gradients within ``STEP_GRAD_RTOL`` in L2 norm over all tensors
-    and within ``STEP_TENSOR_RTOL`` in each tensor of at least
-    ``STEP_GRAD_MIN_NUMEL`` entries,
-    the new running statistics within ``STEP_STATS_RTOL`` and
-    ``STEP_STATS_ATOL``, and the
-    parameters after Adam within ``STEP_ADAM_ATOL``."""
-    import math
-
-    from dream_go_torch.config import ModelConfig
-    from dream_go_torch.models import tower as T
+def step_batch(dev):
+    """The B = ``STEP_REF_BATCH`` batch of the float32 step checks, on the
+    CPU: a bank of eight rl20 games, augmented."""
     from dream_go_torch.train.pipeline import ExampleSource
 
-    t0 = time.monotonic()
     with open(REANALYZE_FILE) as fh:
         lines = [line.strip() for line in fh if line.strip()]
     src = ExampleSource(lines, STEP_REF_BATCH, seed=0, positions_per_game=8,
                         bank_games=8, device=dev)
     feats, labels = next(iter(src.batches(1)))
-    feats, labels = feats.cpu(), {k: v.cpu() for k, v in labels.items()}
-    sd = T.init_train_tower(ModelConfig(), seed=3, device="cpu").state_dict()
+    return feats.cpu(), {k: v.cpu() for k, v in labels.items()}
+
+
+def step_sd():
+    """The float32 step checks' 128 x 9 weights (seeded), on the CPU."""
+    from dream_go_torch.config import ModelConfig
+    from dream_go_torch.models import tower as T
+
+    return T.init_train_tower(ModelConfig(), seed=3, device="cpu").state_dict()
+
+
+def compare_steps(what, got, want) -> str:
+    """Hold one float32 train step ``got`` (metrics, gradients, state
+    after the step, as :func:`train_step_reference` returns them) against
+    ``want``: losses within ``STEP_LOSS_RTOL``, accuracies within one
+    example, the gradients within ``STEP_GRAD_RTOL`` in L2 norm over all
+    tensors and within ``STEP_TENSOR_RTOL`` in each tensor of at least
+    ``STEP_GRAD_MIN_NUMEL`` entries, the new running statistics within
+    ``STEP_STATS_RTOL`` and ``STEP_STATS_ATOL``, and the parameters after
+    Adam within ``STEP_ADAM_ATOL``; returns the gaps, for the log."""
+    import math
+
+    gaps = {}
+    for k, v in want[0].items():
+        if k.startswith("loss"):
+            gaps[k] = abs(got[0][k] - v) / abs(v)
+            check(gaps[k] <= STEP_LOSS_RTOL, f"{what} {k}: "
+                  f"{got[0][k]!r} against {v!r}")
+        else:
+            check(abs(got[0][k] - v) <= 1.0 / STEP_REF_BATCH + 1e-6,
+                  f"{what} {k}: {got[0][k]!r} against {v!r}")
+    diff = {k: float((a - want[1][k]).norm()) for k, a in got[1].items()}
+    norm = {k: float(g.norm()) for k, g in want[1].items()}
+    grad_gap = math.sqrt(sum(d * d for d in diff.values())
+                         / sum(n * n for n in norm.values()))
+    worst = max((diff[k] / max(norm[k], 1e-30), k) for k in diff
+                if got[1][k].numel() >= STEP_GRAD_MIN_NUMEL)
+    check(grad_gap <= STEP_GRAD_RTOL and worst[0] <= STEP_TENSOR_RTOL,
+          f"{what} gradients off by {grad_gap:.3e} in all, "
+          f"{worst[0]:.3e} in {worst[1]}")
+    stats_gap = adam_gap = 0.0
+    for k, a in got[2].items():
+        b = want[2][k]
+        if k.endswith((".mean", ".var")):
+            stats_gap = max(stats_gap, float(
+                ((a - b).abs() - STEP_STATS_RTOL * b.abs()).max()))
+        else:
+            adam_gap = max(adam_gap, float((a - b).abs().max()))
+    check(stats_gap <= STEP_STATS_ATOL, f"{what} running statistics off by "
+          f"{stats_gap:.3e} beyond {STEP_STATS_RTOL} of their value")
+    check(adam_gap <= STEP_ADAM_ATOL, f"{what} parameters off by "
+          f"{adam_gap:.3e}")
+    return (f"loss {got[0]['loss']:.6f} vs {want[0]['loss']:.6f}, "
+            "relative loss gaps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + f"; gradients {grad_gap:.2e} in all (limit {STEP_GRAD_RTOL}), "
+            f"{worst[0]:.2e} in {worst[1]} (limit {STEP_TENSOR_RTOL}); "
+            f"running statistics {stats_gap:.2e} beyond {STEP_STATS_RTOL} "
+            f"of their value (limit {STEP_STATS_ATOL}); parameters after "
+            f"Adam {adam_gap:.2e} (limit {STEP_ADAM_ATOL})")
+
+
+def train_step_parity(dev, host):
+    """The card's float32 train step (TF32 off) against the CPU's (in
+    ``host``, a process of its own) from the same weights and batch,
+    within the limits of :func:`compare_steps`."""
+    t0 = time.monotonic()
+    feats, labels = step_batch(dev)
+    sd = step_sd()
     # the host gets copies: pickling a CPU tensor for the worker moves its
     # storage into shared memory on a feeder thread, which would race with
     # this thread's copy of the same tensor to the card
@@ -1361,45 +1469,9 @@ def train_step_parity(dev, host):
         train_step_reference, "cpu", {k: v.clone() for k, v in sd.items()},
         feats.clone(), {k: v.clone() for k, v in labels.items()})
     card = train_step_reference(dev, sd, feats, labels)
-    host_out = on_host.result()
-    gaps = {}
-    for k, v in host_out[0].items():
-        if k.startswith("loss"):
-            gaps[k] = abs(card[0][k] - v) / abs(v)
-            check(gaps[k] <= STEP_LOSS_RTOL, f"train step {k}: card "
-                  f"{card[0][k]!r}, cpu {v!r}")
-        else:
-            check(abs(card[0][k] - v) <= 1.0 / STEP_REF_BATCH + 1e-6,
-                  f"train step {k}: card {card[0][k]!r}, cpu {v!r}")
-    diff = {k: float((a - host_out[1][k]).norm()) for k, a in card[1].items()}
-    norm = {k: float(g.norm()) for k, g in host_out[1].items()}
-    grad_gap = math.sqrt(sum(d * d for d in diff.values())
-                         / sum(n * n for n in norm.values()))
-    worst = max((diff[k] / max(norm[k], 1e-30), k) for k in diff
-                if card[1][k].numel() >= STEP_GRAD_MIN_NUMEL)
-    check(grad_gap <= STEP_GRAD_RTOL and worst[0] <= STEP_TENSOR_RTOL,
-          f"train step gradients off by {grad_gap:.3e} in all, "
-          f"{worst[0]:.3e} in {worst[1]}")
-    stats_gap = adam_gap = 0.0
-    for k, a in card[2].items():
-        b = host_out[2][k]
-        if k.endswith((".mean", ".var")):
-            stats_gap = max(stats_gap, float(
-                ((a - b).abs() - STEP_STATS_RTOL * b.abs()).max()))
-        else:
-            adam_gap = max(adam_gap, float((a - b).abs().max()))
-    check(stats_gap <= STEP_STATS_ATOL, f"running statistics off by "
-          f"{stats_gap:.3e} beyond {STEP_STATS_RTOL} of their value")
-    check(adam_gap <= STEP_ADAM_ATOL, f"parameters off by {adam_gap:.3e}")
+    summary = compare_steps("train step", card, on_host.result())
     phase("train", t0, f"card == cpu, one float32 train step at 128 x 9, "
-          f"B={STEP_REF_BATCH}: loss {card[0]['loss']:.6f} vs "
-          f"{host_out[0]['loss']:.6f}, relative loss gaps "
-          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
-          + f"; gradients {grad_gap:.2e} in all (limit {STEP_GRAD_RTOL}), "
-          f"{worst[0]:.2e} in {worst[1]} (limit {STEP_TENSOR_RTOL}); running statistics {stats_gap:.2e} beyond "
-          f"{STEP_STATS_RTOL} of their value (limit {STEP_STATS_ATOL}); "
-          f"parameters after Adam {adam_gap:.2e} "
-          f"(limit {STEP_ADAM_ATOL})")
+          f"B={STEP_REF_BATCH}: {summary}")
 
 
 def train_phase(dev, host):
@@ -1786,6 +1858,380 @@ def distill_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# 5e. the mesh and the tools
+
+
+def run_group(name, argv, timeout):
+    """``argv`` (a process that starts ranks) in a session of its own,
+    from the repository's root; all of its processes are killed when it
+    outlasts ``timeout`` seconds: ``(stderr lines, seconds)``, the lines
+    logged.  Raises unless it exits 0."""
+    import signal
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, err = proc.communicate()
+        check(False, f"{name}: killed after {timeout:.0f} s: {err[-3000:]}")
+    lines = err.splitlines()
+    for line in lines:
+        if "socket.cpp" not in line:
+            log(f"  {name}: {line}")
+    check(proc.returncode == 0, f"{name}: exited {proc.returncode}")
+    return lines, time.monotonic() - t0
+
+
+def mesh_step_rank(rank: int, sd, feats, labels, out: str,
+                   device: str) -> None:
+    """One rank of the mesh phase's float32 step: world 2 on the card,
+    data = 2, then model = 2; rank 0 saves both steps, whole, as
+    :func:`train_step_reference` returns them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dream_go_torch.config import ModelConfig, TrainConfig
+    from dream_go_torch.models import tower as T
+    from dream_go_torch.parallel import distributed as D
+    from dream_go_torch.parallel import mesh as M
+    from dream_go_torch.train import lr_schedule as LR
+    from dream_go_torch.train import train_loop as TL
+
+    dev = D.initialize(device)
+    tcfg = TrainConfig(batch_size=feats.shape[0])
+    steps = {}
+    for model_ranks in (1, 2):
+        mesh = M.make_mesh(model=model_ranks)
+        model = T.TrainTower(ModelConfig(compute_dtype="float32"))
+        model.load_state_dict(sd)
+        model.to(dev).train()
+        trainer = TL.Trainer(
+            model.cfg, tcfg, model, TL.make_optimizer(model, tcfg.initial_lr),
+            LR.LearningRateScheduler(tcfg.initial_lr, tcfg.lr_decay))
+        trainer.shard_over(mesh)
+        rows = mesh.local_rows(feats.shape[0])
+        metrics = TL.train_step(
+            trainer.model, trainer.optimizer, tcfg, feats[rows].to(dev),
+            {k: v[rows].to(dev) for k, v in labels.items()},
+            tcfg.initial_lr, mesh)
+        steps[model_ranks] = (
+            {k: float(v) for k, v in metrics.items()},
+            {k: trainer._whole(k, p.grad).cpu()
+             for k, p in trainer.model.named_parameters()},
+            {k: v.cpu() for k, v in trainer.state_dict().items()})
+        if model_ranks == 1:
+            timing = step_timing(dev, M.make_mesh())
+    if rank == 0:
+        torch.save({"steps": steps, "timing": timing}, out)
+    D.shutdown()
+
+
+def timing_batch(dev, b: int):
+    """Random planes and labels of ``b`` examples on ``dev`` (for timing
+    only)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = (torch.rand(b, 19, 19, 32, generator=gen, device=dev) < 0.3
+             ).float()
+    policy = torch.rand(b, 362, generator=gen, device=dev)
+    sign = lambda *shape: torch.randint(  # noqa: E731
+        0, 2, shape, generator=gen, device=dev).float() * 2 - 1
+    return feats, {"policy": policy / policy.sum(-1, keepdim=True),
+                   "value": sign(b), "ownership": sign(b, 361),
+                   "has_ownership": torch.ones(b, device=dev)}
+
+
+def step_ms(dev, mesh=None) -> float:
+    """The mean ms of ``MESH_TIMED_STEPS`` bf16 train steps of the
+    128 x 9 tower at B = 2048 (this rank's rows on a ``mesh``), after
+    three warm-up steps."""
+    from dream_go_torch.config import ModelConfig, TrainConfig
+    from dream_go_torch.models import tower as T
+    from dream_go_torch.train import train_loop as TL
+
+    tcfg = TrainConfig()
+    model = T.init_train_tower(ModelConfig(), seed=3, device=dev)
+    opt = TL.make_optimizer(model, tcfg.initial_lr)
+    if mesh is not None:
+        model.shard_over(mesh)
+        opt = TL.make_optimizer(model, tcfg.initial_lr)
+    rows = slice(None) if mesh is None else mesh.local_rows(
+        tcfg.batch_size)
+    feats, labels = timing_batch(dev, tcfg.batch_size)
+    feats, labels = feats[rows], {k: v[rows] for k, v in labels.items()}
+
+    def step():
+        metrics = TL.train_step(model, opt, tcfg, feats, labels,
+                                tcfg.initial_lr, mesh)
+        torch.stack(list(metrics.values())).tolist()  # as fit reads them
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    for _ in range(MESH_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize(dev)
+    return 1000 * (time.monotonic() - t0) / MESH_TIMED_STEPS
+
+
+def step_timing(dev, mesh) -> dict:
+    """Where a two-rank step's time goes: a bf16 step at B = 2048 (1024
+    a rank), one small all-reduce as the batch norms make (``[2, 128]``
+    float32) and one of every gradient (3.7 M float32), each in ms, both
+    ranks at once on the shared card."""
+    import torch.distributed as dist
+
+    from dream_go_torch.config import ModelConfig
+    from dream_go_torch.models import tower as T
+
+    n = sum(p.numel() for p in T.TrainTower(ModelConfig()).parameters())
+    out = {"step_ms": step_ms(dev, mesh), "grad_numel": n}
+    for name, x, reps in (("stats", torch.ones(2, 128, device=dev),
+                           MESH_TIMED_REDUCES),
+                          ("grads", torch.ones(n, device=dev),
+                           MESH_TIMED_STEPS)):
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        for _ in range(reps):
+            dist.all_reduce(x, group=mesh.data_group)
+        torch.cuda.synchronize(dev)
+        out[f"{name}_reduce_ms"] = 1000 * (time.monotonic() - t0) / reps
+    return out
+
+
+def mesh_phase(dev):
+    """The RL loop over two ranks sharing the card (``torchrun ... --loop 1
+    --mesh``), one float32 train step on two ranks against one, the
+    multi-device dry run over NCCL, and ``entry()`` on the card."""
+    import math
+    import shutil
+
+    from dream_go_torch import entry
+    from dream_go_torch.parallel import distributed as D
+    from dream_go_torch.train.train_loop import Trainer
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, MESH_DIR)
+    shutil.rmtree(out, ignore_errors=True)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(MESH_RANKS), "-m", "dream_go_torch.cli",
+            "--loop", "1", "--mesh", "--ex-it", "--ladder-features",
+            "--out-dir", out, "--num-games", str(LOOP_GAMES),
+            "--num-rollout", str(LOOP_ROLLOUTS), "--max-moves",
+            str(LOOP_MOVES), "--bank-games", str(LOOP_BANK), "--seed", "0",
+            "--device", dev.type]
+    lines, wall = run_group("--loop 1 --mesh", argv, MESH_LOOP_TIMEOUT)
+    text = "\n".join(lines)
+    check(f"mesh: {{'data': {MESH_RANKS}, 'model': 1}}" in text,
+          "the mesh line is missing")
+    check(text.count("backend gloo") == MESH_RANKS,
+          "the ranks sharing the card did not all take gloo")
+    launches = {}
+    # the ranks write to one pipe, so their lines may interleave
+    for m in re.finditer(r"rank \d+ of \d+: kernel launches (\{[^}]*\})",
+                         text):
+        for k, v in json.loads(m.group(1)).items():
+            launches[k] = launches.get(k, 0) + v
+    check(len(re.findall(r"kernel launches", text)) == MESH_RANKS,
+          "a rank printed no launch counts")
+    for k in ("leaf_step", "ladder_planes", "board_features_raw"):
+        check(launches.get(k, 0) > 0, f"the mesh loop never launched {k}: "
+              f"{launches}")
+    with open(os.path.join(out, "gen_0000.sgf")) as fh:
+        games = [line.strip() for line in fh if line.strip()]
+    check(len(games) == LOOP_GAMES, f"the mesh loop wrote {len(games)} "
+          f"games, not {LOOP_GAMES}")
+    counts = [check_loop_sgf(line, LOOP_ROLLOUTS) for line in games]
+    check(os.path.exists(os.path.join(out, "weights_0000.json")),
+          "the mesh loop wrote no weights_0000.json")
+    step = Trainer.restore(os.path.join(out, "ckpt_0000"), device=dev).step
+    check(step == LOOP_STEPS, f"the mesh loop's checkpoint is at step {step}")
+    loss = [float(x) for x in re.findall(r"gen 0: loss (\S+)", text)]
+    check(len(loss) == 1 and math.isfinite(loss[0]), f"losses {loss}")
+    parts = re.findall(r"\[play ([\d.]+)s, ex-it ([\d.]+)s\]", text) + \
+        re.findall(r"\[bank ([\d.]+)s on each of \d+ ranks, train "
+                   r"([\d.]+)s\]", text)
+    phase("mesh", t_phase,
+          f"--loop 1 --mesh on {MESH_RANKS} ranks sharing the card, 128x9, "
+          f"B=2048 ({2048 // MESH_RANKS} a rank), {LOOP_GAMES} games x "
+          f"{LOOP_MOVES} moves ({sum(c[0] for c in counts)} moves, "
+          f"{sum(c[1] for c in counts)} re-searched by ex-it), step {step}, "
+          f"loss {loss[0]:.4f}; seconds (play, ex-it), (bank, train): "
+          f"{parts}; wall {wall:.1f} s; launches summed over the ranks "
+          f"{launches}")
+
+    t0 = time.monotonic()
+    feats, labels = step_batch(dev)
+    sd = step_sd()
+    one = train_step_reference(dev, sd, feats, labels)
+    path = os.path.join(out, "steps.pt")
+    D.spawn(mesh_step_rank, MESH_RANKS,
+            ({k: v.clone() for k, v in sd.items()}, feats.clone(),
+             {k: v.clone() for k, v in labels.items()}, path, dev.type),
+            timeout=MESH_TIMEOUT)
+    saved = torch.load(path)
+    steps, timing = saved["steps"], saved["timing"]
+    for model_ranks in (1, 2):
+        summary = compare_steps(f"world 2, model {model_ranks}",
+                                steps[model_ranks], one)
+        phase("mesh", t0, f"world {MESH_RANKS} (data "
+              f"{MESH_RANKS // model_ranks}, model {model_ranks}) == world "
+              f"1, one float32 train step at 128 x 9, B={STEP_REF_BATCH}: "
+              f"{summary}")
+
+    one_ms = step_ms(dev)
+    bn_layers = 3 + 2 * 9  # upsample, the blocks' two, the two heads'
+    phase("mesh", t0, f"a bf16 step at 128 x 9, B=2048: world 1 "
+          f"{one_ms:.2f} ms, world {MESH_RANKS} sharing the card "
+          f"{timing['step_ms']:.2f} ms; one all-reduce of a batch norm's "
+          f"statistics {timing['stats_reduce_ms']:.3f} ms (x "
+          f"{2 * bn_layers} a step, forward and backward: "
+          f"{2 * bn_layers * timing['stats_reduce_ms']:.1f} ms), of the "
+          f"{timing['grad_numel']} gradients "
+          f"{timing['grads_reduce_ms']:.2f} ms (gloo, through the host)")
+
+    t0 = time.monotonic()
+    fn, (x,) = entry.entry(dev.type)
+    fn32, _ = entry.entry("cpu")
+    planes = torch.from_numpy((np.random.default_rng(0).random(
+        tuple(x.shape)) < 0.3).astype(np.float32))
+    limits = (BF16_VALUE_ATOL, BF16_POLICY_ATOL, BF16_POLICY_KL)
+    for name, inp in (("zeros", x.cpu()), ("random planes", planes)):
+        logits, value, _ = fn(inp.to(dev))
+        logits32, value32, _ = fn32(inp)
+        check(next(fn.model.parameters()).dtype == torch.bfloat16
+              and torch.isfinite(logits).all(), "entry() on the card")
+        gaps = bf16_gaps((value + 1) / 2, torch.softmax(logits.float(), -1),
+                         (value32 + 1) / 2, torch.softmax(logits32, -1))
+        check(all(g <= lim for g, lim in zip(gaps, limits)),
+              f"entry() on {name}: bf16 off float32 by {gaps}")
+        phase("mesh", t0, f"entry() 128x9 at B=16 on {name}: bf16 on the "
+              f"card vs fp32 on the CPU max |dv|, |dp|, KL {gaps} (limits "
+              f"{limits})")
+    phase("mesh", t_phase, "the mesh phase")
+    return launches
+
+
+def dryrun_check(dev):
+    """``dryrun_multichip(1)``: one spawned rank on the card, over NCCL,
+    JAX's two tiny generations (run beside the reference phase, which
+    times nothing: its rank is host-bound, and its launches are counted
+    in its own process)."""
+    from dream_go_torch import entry
+    from dream_go_torch.parallel import distributed as D
+
+    t0 = time.monotonic()
+    backend = D.backend_for(dev, 1)
+    check(backend[0] == "nccl", f"one rank on the card takes {backend}")
+    entry.dryrun_multichip(1, dev.type)
+    phase("mesh", t0, f"dryrun_multichip(1) over {backend[0]} "
+          f"({backend[1]}): both generations, beside the reference "
+          f"phase")
+
+
+def tool_run(name, main, argv):
+    """``main(argv)`` with stdout and stderr captured and the launch counts
+    zeroed before and read after: ``(stdout lines, launches, seconds)``;
+    the stderr lines are logged."""
+    import contextlib
+    import io
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(stdout), \
+            contextlib.redirect_stderr(stderr):
+        rc, launches, wall = counted(lambda: main(argv))
+    check(rc == 0, f"{name} exited {rc}")
+    for line in stderr.getvalue().splitlines():
+        log(f"  {name}: {line}")
+    return stdout.getvalue().splitlines(), launches, wall
+
+
+def tools_phase(dev):
+    """The tools at 128 x 9 on the card: the arena over the loop phase's
+    three planes-on generations (policy play, then search play), the
+    accuracy of ``weights_0002.json`` on the sample games, supervised
+    training, and ``sgf2score`` (card == CPU)."""
+    import math
+
+    from dream_go_torch.tools import (arena, eval_accuracy, sgf2score,
+                                      train_supervised)
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    loop = os.path.join(root, LOOP_DIR)
+    total = {}
+    for what, extra, games in (
+            ("policy", ["--max-moves", str(ARENA_MOVES)], ARENA_GAMES),
+            ("search", ["--rollouts", str(ARENA_ROLLOUTS), "--max-moves",
+                        str(ARENA_SEARCH_MOVES)], ARENA_SEARCH_GAMES)):
+        out, launches, wall = tool_run(
+            f"arena ({what})", arena.main,
+            [loop, "--games", str(games), "--seed", "0", "--device",
+             dev.type, *extra])
+        line = json.loads(out[-1])
+        check(sorted(line["elo"]) == ["gen0000", "gen0001", "gen0002"]
+              and line["games"] == 3 * games, f"arena ({what}): {line}")
+        check(launches["ladder_planes"] > 0 and (
+            what == "policy" or launches["leaf_step"] > 0),
+            f"arena ({what}) launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        phase("tools", t_phase, f"arena, {what} play, 3 planes-on 128x9 "
+              f"generations x {games} games a pair, cut at {extra[-1]} "
+              f"moves: {line}, {wall:.2f} s, launches {launches}")
+    t0 = time.monotonic()
+    out, launches, wall = tool_run(
+        "eval_accuracy", eval_accuracy.main,
+        [os.path.join(loop, "weights_0002.json"), "--device", dev.type])
+    row = json.loads(out[0])
+    check(row["examples"] == 48 and all(
+        0.0 <= row[k] <= 1.0 for k in ("top1", "top3", "top5",
+                                       "value_sign")), f"eval_accuracy {row}")
+    phase("tools", t0, f"eval_accuracy of weights_0002.json: {row}, "
+          f"{wall:.2f} s, launches {launches}")
+    t0 = time.monotonic()
+    metrics = os.path.join(root, MESH_DIR, "supervised.jsonl")
+    _, launches, wall = tool_run(
+        "train_supervised", train_supervised.main,
+        ["--steps", str(SUPERVISED_STEPS), "--eval-every",
+         str(SUPERVISED_STEPS), "--eval-batches", "2", "--batch",
+         str(SUPERVISED_BATCH), "--bank-games", str(SUPERVISED_BANK),
+         "--metrics", metrics, "--device", dev.type])
+    with open(metrics) as fh:
+        rows = [json.loads(line) for line in fh]
+    check([(r["step"], r["split"]) for r in rows] ==
+          [(SUPERVISED_STEPS, "train"), (SUPERVISED_STEPS, "holdout")]
+          and all(math.isfinite(r["loss"]) for r in rows),
+          f"train_supervised rows {rows}")
+    check(launches["board_features_raw"] > 0,
+          f"train_supervised launches {launches}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    phase("tools", t0, f"train_supervised, {SUPERVISED_STEPS} steps at "
+          f"128x9, batch {SUPERVISED_BATCH}, banks of {SUPERVISED_BANK} "
+          f"games: "
+          f"{wall:.2f} s ({1000 * wall / SUPERVISED_STEPS:.1f} ms a step "
+          f"with its evaluation), holdout loss {rows[1]['loss']}, launches "
+          f"{launches}")
+    t0 = time.monotonic()
+    with open(REANALYZE_FILE) as fh:
+        lines = [line.strip() for line in fh if line.strip()]
+    card = sgf2score.rescore(lines, dev)
+    check(card == sgf2score.rescore(lines, "cpu") and card != lines,
+          "sgf2score: the card's lines differ from the CPU's")
+    phase("tools", t0, f"sgf2score of {len(lines)} games: card == cpu, "
+          f"results {[re.search(r'RE.([^]]*)', l).group(1) for l in card]}")
+    phase("tools", t_phase, "the tools phase")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 5d. the benchmark entry
 
 
@@ -2154,17 +2600,26 @@ def main() -> int:
     # the CPU sides of the card-against-CPU checks run in this process
     # meanwhile (spawned: a forked child must not inherit CUDA)
     with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn"),
+            HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=torch.set_num_threads,
             initargs=(HOST_THREADS,)) as host:
-        reference_phase(dev, host)
+        # the dry run's rank, host-bound, beside a phase that times nothing
+        with concurrent.futures.ThreadPoolExecutor(1) as beside:
+            dryrun = beside.submit(dryrun_check, dev)
+            reference_phase(dev, host)
+            dryrun.result()
         launches = selfplay_phase(dev)
         serve_phase(dev, host)
         train_phase(dev, host)
     loop_phase(dev)
     distill_phase(dev)
+    mesh_launches = mesh_phase(dev)
+    tools_launches = tools_phase(dev)
     _, bench_launches = bench_phase()
     launches["env_step"] = bench_launches["env_step"]
+    for more in (mesh_launches, tools_launches):
+        for k in launches:
+            launches[k] += more.get(k, 0)
     sanity_phase(dev)
     times = timing_phase(states, actions, env_states)
     log(json.dumps({"kernels": [{

@@ -21,6 +21,8 @@ the benchmark and the trainer.
     python -m dream_go_torch.cli --start DATA --lz-weights LZ.txt[.gz] ...
     python -m dream_go_torch.cli --loop GENS [--out-dir DIR] [--ex-it] \
         [--resume-loop [--warm-restart]] [--num-games G] [--num-rollout R]
+    torchrun --standalone --nproc-per-node N -m dream_go_torch.cli \
+        --loop GENS --mesh [--mesh-model M] [...]
     python -m dream_go_torch.cli ... --profile DIR
 
 With no mode flag, or with ``--gtp``, the CLI serves GTP on stdin/stdout
@@ -77,9 +79,16 @@ balanced replay window and writes ``gen_NNNN.sgf``, ``ckpt_NNNN``,
 ``dream_go.json`` and ``weights_NNNN.json``; ``--resume-loop`` continues
 from the directory's last checkpoint, and ``--warm-restart`` then restarts
 the learning-rate schedule at the warm-start rate.  ``--max-moves`` caps
-the loop's games too.  ``--profile DIR`` records the whole command with
-``torch.profiler`` (CPU and, where there is one, CUDA activity) into
-``DIR/trace.json``.
+the loop's games too.  ``--mesh`` runs the loop on every rank of the
+process group (`dream_go_torch/parallel/`), one process a rank as torchrun
+starts them: the games split over the ranks, a data-parallel learner
+whose batch norm and gradients reduce over the ``data`` axis, and with
+``--mesh-model M`` the policy head's weight split over ``M`` ranks; rank 0
+writes the files, and each rank prints its kernel launches at the end.
+Outside torchrun ``--mesh`` is a world of one (JAX's ``--mesh`` spans the
+local devices of one process instead).  ``--profile DIR`` records the
+whole command with ``torch.profiler`` (CPU and, where there is one, CUDA
+activity) into ``DIR/trace.json``.
 """
 
 from __future__ import annotations
@@ -133,6 +142,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--warm-restart", action="store_true",
                         help="--loop --resume-loop: restart the learning-"
                              "rate schedule at the warm-start rate")
+    parser.add_argument("--mesh", action="store_true",
+                        help="--loop: actor and learner over every rank of "
+                             "the process group (torchrun)")
+    parser.add_argument("--mesh-model", type=int, default=1,
+                        help="--loop --mesh: ranks the policy head's weight "
+                             "splits over")
     parser.add_argument("--profile", metavar="DIR",
                         help="write a torch.profiler trace of the command "
                              "to DIR/trace.json")
@@ -423,8 +438,24 @@ def rl_loop(args):
                      positions_per_game=args.positions_per_game,
                      bank_games=args.bank_games,
                      resume=args.resume_loop,
-                     warm_restart=args.warm_restart),
+                     warm_restart=args.warm_restart,
+                     use_mesh=args.mesh, mesh_model=args.mesh_model),
         device=args.device)
+    if args.mesh:
+        import json
+
+        from .ops import env_step, ladder_kernel, leaf_step, libs_after
+        from .parallel import distributed as D
+
+        launches = {"leaf_step": leaf_step.launches,
+                    "ladder_planes": ladder_kernel.launches,
+                    "board_features_raw": libs_after.launches,
+                    "env_step": env_step.launches}
+        # one write, so that the ranks' lines do not interleave
+        sys.stderr.write(f"rank {D.rank()} of {D.world_size()}: kernel "
+                         f"launches {json.dumps(launches)}\n")
+        sys.stderr.flush()
+        D.shutdown()
 
 
 def main(argv=None):
@@ -432,6 +463,8 @@ def main(argv=None):
     args, rest = parser.parse_known_args(argv)
     if rest and not args.bench:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.mesh and not args.loop:
+        parser.error("--mesh runs with --loop")
     if not args.profile:
         return _run(args, rest)
     from torch.profiler import ProfilerActivity, profile

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.draws import draw
+
 
 def choose_weights(items: torch.Tensor, cutoff_percentile: float,
                    temperature: float) -> torch.Tensor:
@@ -25,13 +27,18 @@ def choose_weights(items: torch.Tensor, cutoff_percentile: float,
     return torch.where(keep, (x / safe_total) ** (1.0 / temperature), 0.0)
 
 
-def choose(generator: torch.Generator, items: torch.Tensor,
-           cutoff_percentile: float = 0.5,
+def choose(generator, items: torch.Tensor, cutoff_percentile: float = 0.5,
            temperature: float = 1.0) -> torch.Tensor:
     """Sample an index per row of ``items`` [B, N]; rows with no kept mass
-    return N-1 (the pass slot, `choose(...).unwrap_or(361)`)."""
+    return N-1 (the pass slot, `choose(...).unwrap_or(361)`).  The draw
+    is ``torch.multinomial``'s for one sample, ``argmax(w / q)`` with
+    ``q ~ Exp(1)``, its ``q`` made by :func:`..utils.draws.draw`, so that
+    ``generator`` may be a :class:`..utils.draws.RowGenerator`."""
     w = choose_weights(items, cutoff_percentile, temperature)
     zero = w.sum(-1) <= 0
     safe = torch.where(zero[:, None], 1.0, w)
-    idx = torch.multinomial(safe, 1, generator=generator)[:, 0]
+    q = draw(generator, lambda g, n: torch.empty(
+        (n,) + safe.shape[1:], device=safe.device).exponential_(
+            1, generator=g), safe.shape[0])
+    idx = torch.argmax(safe / q, dim=-1)
     return torch.where(zero, items.shape[-1] - 1, idx)

@@ -41,6 +41,7 @@ from ..go.options import scoring_mask, standard_mask
 from ..ops import layout
 from ..ops.env_step import env_step_states
 from ..ops.leaf_step import leaf_step
+from ..utils.draws import draw
 from ..utils.lcb import normal_lcb
 from ..utils.numerics import fma as _fma
 from .choose import choose
@@ -209,7 +210,10 @@ def _masked_prior(policy, candidate):
 
 def _dirichlet_mix(gen, prior, candidate, beta, alpha):
     """(1-b)*p + b*Dir(alpha) over candidate entries (`dirichlet.rs`)."""
-    g = torch._standard_gamma(torch.full_like(prior, alpha), generator=gen)
+    g = draw(gen, lambda gg, n: torch._standard_gamma(torch.full(
+        (n,) + prior.shape[1:], alpha, dtype=prior.dtype,
+        device=prior.device), generator=gg),
+        prior.shape[0])
     g = torch.where(candidate, g, 0.0)
     g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-12)
     return torch.where(candidate, (1.0 - beta) * prior + beta * g, prior)

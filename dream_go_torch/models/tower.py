@@ -13,6 +13,7 @@ training form) or from :func:`init_tower` / :func:`init_train_tower`.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -111,7 +112,13 @@ class BatchNorm(nn.Module):
     move 0.01 of the way towards them.  The running variance takes the
     biased variance the batch is normalised with, as flax's ``BatchNorm``
     does; ``F.batch_norm`` moves it towards the unbiased one, n/(n-1)
-    times larger, so the update is corrected after the call."""
+    times larger, so the update is corrected after the call.
+
+    On a mesh (``group`` set by :meth:`TrainTower.shard_over`) the
+    statistics are the whole batch's: the per-channel sum and sum of
+    squares, in float32 at least, are summed over the data group by a
+    differentiable all-reduce, and the variance is flax's ``E[x^2] -
+    E[x]^2`` over the global count."""
 
     EPS = 1e-3
     MOMENTUM = 0.99
@@ -124,11 +131,14 @@ class BatchNorm(nn.Module):
         # the fixed scale, given: CUDA's batch-norm backward without a
         # weight returns no gradient for the offset
         self.register_buffer("scale", torch.ones(channels), persistent=False)
+        self.group = None
 
     def forward(self, x, update: bool = True):
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale,
                                 self.bias, False, 0.0, self.EPS)
+        if self.group is not None:
+            return self._synced(x, update)
         # copies, which the backward pass may read after the update (and a
         # recomputation under remat saves the same tensors, then drops them)
         mean, var = self.mean.clone(), self.var.clone()
@@ -142,6 +152,25 @@ class BatchNorm(nn.Module):
                 self.var.mul_(self.MOMENTUM / n).add_(var,
                                                       alpha=(n - 1) / n)
         return y
+
+    def _synced(self, x, update: bool):
+        from ..parallel import mesh as M
+
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        sums = M.all_reduce_sum(torch.stack(
+            [xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]), self.group)
+        n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+        mean, mean2 = sums[0] / n, sums[1] / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.reshape(shape)) * torch.rsqrt(
+            var + self.EPS).reshape(shape) + self.bias.reshape(shape)
+        if update:
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        return y.to(x.dtype)
 
 
 class BNConv(nn.Module):
@@ -191,7 +220,9 @@ def _remat(block: TrainBlock, x):
 class TrainTower(nn.Module):
     """The training form of :class:`Tower`, with the same names, the
     same ``forward`` and float32 outputs.  ``cfg.remat`` recomputes each
-    residual block in the backward pass."""
+    residual block in the backward pass.  :meth:`shard_over` puts it on a
+    mesh: synced batch norm, and with ``model > 1`` this rank's rows of
+    the policy head's weight (its output columns)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -204,6 +235,32 @@ class TrainTower(nn.Module):
         self.value_conv = BNConv(c, 2)
         self.ownership_conv = nn.Conv2d(2, 1, 1)
         self.value_linear = nn.Linear(722, 1)
+        # (model group, first column, end column) of a split policy head
+        self.policy_split = None
+
+    def shard_over(self, mesh) -> None:
+        """Sum the batch norms' statistics over ``mesh``'s data group, and
+        with ``model > 1`` keep this rank's columns of the policy head
+        (the bias stays whole and is added after the gather)."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = mesh.data_group
+        if mesh.model > 1:
+            bounds = mesh.column_bounds(362)
+            lo, hi = bounds[mesh.model_index], bounds[mesh.model_index + 1]
+            w = self.policy_linear.weight
+            self.policy_linear.weight = nn.Parameter(w.detach()[lo:hi].clone())
+            self.policy_split = (mesh.model_group, lo, hi)
+
+    def _policy_logits(self, flat):
+        if self.policy_split is None:
+            return self.policy_linear(flat)
+        from ..parallel import mesh as M
+
+        group, lo, hi = self.policy_split
+        y = F.linear(M.copy_to_model(flat, group), self.policy_linear.weight)
+        full = M.gather_columns(y, group, lo, hi, 362)
+        return full + self.policy_linear.bias.to(full.dtype)
 
     def forward(self, x):
         x = self.upsample(x)
@@ -212,7 +269,7 @@ class TrainTower(nn.Module):
             x = _remat(block, x) if remat else block(x)
         b = x.shape[0]
         p = self.policy_conv(x)
-        logits = self.policy_linear(p.permute(0, 2, 3, 1).reshape(b, -1))
+        logits = self._policy_logits(p.permute(0, 2, 3, 1).reshape(b, -1))
         v = self.value_conv(x)
         ownership = torch.tanh(
             self.ownership_conv(v).reshape(b, 361).float())

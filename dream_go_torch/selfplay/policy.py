@@ -15,7 +15,9 @@ evaluation per move for the whole batch.  Reference semantics kept:
 The JAX package runs chunks of moves as one ``lax.scan`` program so that
 a remote device is fetched once per chunk; here a host loop plays the
 moves and fetches each chunk's records once.  Random draws come from one
-``torch.Generator`` on the device, seeded by ``seed``.
+``torch.Generator`` on the device, seeded by ``seed``.  On a mesh each
+rank plays its share of the games with its rows of the whole batch's
+draws (:mod:`..utils.draws`), and the lines are gathered.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..go.engine import GoState
 from ..go.options import scoring_mask
 from ..mcts.choose import choose
 from ..mcts.predictor import symmetrize
+from ..utils.draws import batch_rows
 from .records import Played, game_result_sgf
 
 
@@ -92,15 +95,24 @@ def _build_move_fn(player: PolicyPlayer):
 
 
 def policy_self_play(player: PolicyPlayer, cfg: SelfPlayConfig,
-                     seed: int = 0, device="cuda") -> list[str]:
-    """Play ``cfg.num_games`` games to completion; returns SGF lines."""
+                     seed: int = 0, device="cuda", mesh=None) -> list[str]:
+    """Play ``cfg.num_games`` games to completion; returns SGF lines.
+
+    With ``mesh`` (:mod:`..parallel.mesh`; JAX's ``sharding``) this rank
+    plays its ``local_game_slice`` of the games: their initial states and
+    komi, and its rows of the whole batch's random draws, so that each
+    game is the one-process run's; the lines of every rank are gathered in
+    global game order and returned on every rank."""
+    from ..parallel import distributed as D
+
     dev = torch.device(device)
-    states = engine.new_states(cfg.num_games, komi=cfg.komi,
+    total = cfg.num_games
+    start, count, gen = batch_rows(total, seed, dev, mesh)
+    states = engine.new_states(count, komi=cfg.komi,
                                history_len=cfg.history_len, device=dev)
     if cfg.random_komi:
         states = states.replace(komi=torch.as_tensor(
-            random_komi(cfg.num_games, seed), device=dev))
-    gen = torch.Generator(device=dev).manual_seed(seed)
+            random_komi(total, seed)[start:start + count], device=dev))
     move_fn = _build_move_fn(player)
     chunk = min(32, cfg.max_moves)
 
@@ -123,7 +135,7 @@ def policy_self_play(player: PolicyPlayer, cfg: SelfPlayConfig,
     territory = _final_territory(states).cpu().numpy()
     komis = states.komi.cpu().numpy()
     games = []
-    for g in range(cfg.num_games):
+    for g in range(count):
         sgf_moves = []
         for active, move, value, to_move, policy in records:
             if not active[g]:
@@ -135,4 +147,4 @@ def policy_self_play(player: PolicyPlayer, cfg: SelfPlayConfig,
         games.append(game_result_sgf(
             "".join(sgf_moves), komi=float(komis[g]),
             territory=territory[g]))
-    return games
+    return games if mesh is None else D.all_gather_lines(games)

@@ -19,7 +19,10 @@ fresh boards and fresh trees.  Reference semantics kept:
 - reused subtree visits count toward the budget.
 
 Random draws (Dirichlet noise, temperature sampling) come from one
-``torch.Generator`` on the search device, seeded by ``seed``.
+``torch.Generator`` on the search device, seeded by ``seed``.  With a
+``mesh`` each rank plays its share of the batch with its rows of the
+whole batch's draws (:mod:`..utils.draws`), as policy play does, and the
+lines are gathered.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ..go import benson as bn
 from ..go import engine
 from ..mcts import search as S
 from ..mcts.predictor import symmetrize
+from ..utils.draws import batch_rows
 from .policy import PolicyPlayer, _build_move_fn, _final_territory, random_komi
 from .records import Played, game_result_sgf
 
@@ -136,26 +140,36 @@ def _initial_states(cfg: SelfPlayConfig, batch: int, seed: int, dev):
     return states.replace(komi=torch.as_tensor(komi0, device=dev))
 
 
+def _gather(lines: list[str], mesh) -> list[str]:
+    from ..parallel import distributed as D
+
+    return lines if mesh is None else D.all_gather_lines(lines)
+
+
 def search_self_play(predictor, cfg: SelfPlayConfig,
                      search_cfg: SearchConfig | None = None, seed: int = 0,
                      sym_average: bool = False, tree_reuse: bool = True,
-                     device="cuda") -> list[str]:
+                     device="cuda", mesh=None) -> list[str]:
     """Play ``cfg.num_games`` MCTS games in one lockstep batch until the
     last one ends (or ``max_moves``); returns their SGF lines.  With
-    ``sym_average`` every evaluation averages the eight symmetries."""
+    ``sym_average`` every evaluation averages the eight symmetries.  With
+    ``mesh`` this rank plays its ``local_game_slice`` of the games with
+    its rows of the whole batch's draws, and every rank returns all the
+    lines in global game order."""
     search_cfg = search_cfg or SearchConfig()
     if sym_average:
         predictor = symmetrize(predictor)
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    states = _initial_states(cfg, cfg.num_games, seed, dev)
+    start, count, gen = batch_rows(cfg.num_games, seed, dev, mesh)
+    states = _initial_states(cfg, cfg.num_games, seed, dev).index(
+        slice(start, start + count))
     first_fn, reuse_fn = _build_search_move_fn(
         predictor, search_cfg, cfg.num_rollout, cfg.temperature_moves,
         tree_reuse=tree_reuse)
-    winrate = np.full((cfg.num_games, 2), 0.5, np.float32)
+    winrate = np.full((count, 2), 0.5, np.float32)
     records = []
     trees, prev_move = None, None
-    no_fresh = torch.zeros(cfg.num_games, dtype=torch.bool, device=dev)
+    no_fresh = torch.zeros(count, dtype=torch.bool, device=dev)
     for _ in range(cfg.max_moves):
         active = ~states.done.cpu().numpy()
         to_move = states.to_move.cpu().numpy()
@@ -174,9 +188,9 @@ def search_self_play(predictor, cfg: SelfPlayConfig,
                         targets.cpu().numpy().astype(np.float16), budget))
         if bool(states.done.all()):
             break
-    return _game_lines(records, range(cfg.num_games),
-                       states.komi.cpu().numpy(),
-                       _final_territory(states).cpu().numpy())
+    return _gather(_game_lines(records, range(count),
+                               states.komi.cpu().numpy(),
+                               _final_territory(states).cpu().numpy()), mesh)
 
 
 def _policy_stagger(predictor, cfg: SelfPlayConfig, search_cfg: SearchConfig,
@@ -226,9 +240,13 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
                                 game_times: list | None = None,
                                 deadline_s: float | None = None,
                                 initial_states: engine.GoState | None = None,
-                                ) -> list[str]:
+                                mesh=None) -> list[str]:
     """Full-search self-play with continuous batching; returns the SGF
-    lines of the first ``cfg.num_games`` completed games.
+    lines of the first ``cfg.num_games`` completed games.  With ``mesh``
+    this rank keeps its ``local_game_slice`` of the ``batch`` slots (and
+    of ``initial_states``) live, with its rows of the whole batch's
+    draws, until it has completed its share of the ``cfg.num_games``
+    games; every rank returns all of them, in rank order.
 
     ``stats`` receives ``move_events``, one ``(monotonic_time,
     active_games, charged_sims)`` tuple per move, appended after the move's
@@ -242,14 +260,20 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
     search_cfg = search_cfg or SearchConfig()
     if sym_average:
         predictor = symmetrize(predictor)
+    from ..parallel import distributed as D
+
     dev = torch.device(device)
     rng_np = np.random.default_rng(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     if initial_states is not None:
         states = initial_states
         batch = states.batch
     else:
         states = _initial_states(cfg, batch, seed, dev)
+    start, count, gen = batch_rows(batch, seed, dev, mesh)
+    total, batch = batch, count
+    states = states.index(slice(start, start + count))
+    num_games = cfg.num_games if mesh is None \
+        else D.local_game_slice(cfg.num_games)[1]
     first_fn, reuse_fn = _build_search_move_fn(
         predictor, search_cfg, cfg.num_rollout, cfg.temperature_moves)
 
@@ -261,7 +285,7 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
     games: list[str] = []
     trees, prev_move = None, None
     move_i = 0
-    max_total = cfg.max_moves * (cfg.num_games + batch)
+    max_total = cfg.max_moves * (num_games + batch)
 
     def flush_and_refill():
         nonlocal states, records, rec_base
@@ -279,7 +303,8 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
                 game_times.append(time.monotonic())
         refill_komi = np.where(
             done,
-            random_komi(batch, int(rng_np.integers(1, 2**31)))
+            random_komi(total, int(rng_np.integers(1, 2**31)))[
+                start:start + batch]
             if cfg.random_komi else np.full(batch, cfg.komi, np.float32),
             komis).astype(np.float32)
         states = _reset_slots(states, torch.as_tensor(done, device=dev),
@@ -294,7 +319,7 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
             rec_base = lo
 
     t_deadline = None
-    while len(games) < cfg.num_games and move_i < max_total and (
+    while len(games) < num_games and move_i < max_total and (
             t_deadline is None or time.monotonic() < t_deadline):
         active = ~states.done.cpu().numpy()
         to_move = states.to_move.cpu().numpy()
@@ -323,4 +348,4 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
         if move_i % refill_every == 0:
             flush_and_refill()
 
-    return games[:cfg.num_games]
+    return _gather(games[:num_games], mesh)

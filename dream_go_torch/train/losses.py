@@ -77,8 +77,17 @@ def accuracy_metrics(outputs, labels: dict) -> dict:
     topk = lambda k: (ahead < k).float().mean()
     value_acc = (torch.sign(value) == torch.sign(labels["value"])
                  ).float().mean()
-    own_mask = labels["has_ownership"][:, None] * (labels["ownership"] != 0)
-    own_acc = ((torch.sign(ownership) == torch.sign(labels["ownership"]))
-               * own_mask).sum() / torch.clamp(own_mask.sum(), min=1.0)
+    hits, counted = ownership_counts(ownership, labels)
+    own_acc = hits / torch.clamp(counted, min=1.0)
     return dict(policy_top1=topk(1), policy_top3=topk(3), policy_top5=topk(5),
                 value_accuracy=value_acc, ownership_accuracy=own_acc)
+
+
+def ownership_counts(ownership, labels: dict):
+    """``(points whose ownership sign is right, points counted)``: the
+    ownership accuracy's numerator and denominator, which a mesh sums
+    over its data group."""
+    own_mask = labels["has_ownership"][:, None] * (labels["ownership"] != 0)
+    hits = ((torch.sign(ownership) == torch.sign(labels["ownership"]))
+            * own_mask).sum()
+    return hits, own_mask.sum()

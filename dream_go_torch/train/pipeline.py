@@ -193,16 +193,25 @@ class ExampleSource:
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
-    def batches(self, num_batches: int):
+    def batches(self, num_batches: int, rows: slice | None = None):
+        """``num_batches`` batches of ``(features, labels)``.  With
+        ``rows`` (a slice of the batch) each batch is those rows of the
+        batch drawn without it: a rank of a mesh draws the whole batch
+        from the same seeds as every other rank and keeps its rows (the
+        bank's gather and augmentation only for them)."""
         if self.bank_games:
-            yield from self._banked_batches(num_batches)
+            yield from self._banked_batches(num_batches, rows)
             return
         g = self.batch_size // self.positions_per_game
         for _ in range(num_batches):
-            yield _device_batch(*self._on_device(*self._sample_arrays(g)),
-                                self.gen, self.history_len, self.augment,
-                                self.ladder_features, self.feature_set,
-                                self.lz_history)
+            feats, labels = _device_batch(
+                *self._on_device(*self._sample_arrays(g)), self.gen,
+                self.history_len, self.augment, self.ladder_features,
+                self.feature_set, self.lz_history)
+            if rows is not None:
+                feats, labels = feats[rows], {k: v[rows]
+                                              for k, v in labels.items()}
+            yield feats, labels
 
     def build_bank(self):
         """The example bank, ``(features, labels)``, built at the first
@@ -214,14 +223,24 @@ class ExampleSource:
                 self.feature_set)
         return self.bank
 
-    def _banked_batches(self, num_batches: int):
+    def _banked_batches(self, num_batches: int, rows: slice | None):
         for _ in range(num_batches):
             feats, labels = self.build_bank()
             idx = torch.as_tensor(
                 self.rng.integers(0, feats.shape[0], self.batch_size),
                 device=self.device)
+            sym = u = None
+            if rows is not None:
+                if self.augment:  # the whole batch's draws, in _augment's
+                    #               order
+                    sym = torch.randint(0, 8, (self.batch_size,),
+                                        generator=self.gen,
+                                        device=self.device)[rows]
+                    u = torch.rand(self.batch_size, generator=self.gen,
+                                   device=self.device)[rows]
+                idx = idx[rows]
             yield _bank_batch(feats, labels, idx, self.gen, self.augment,
-                              self.feature_set)
+                              self.feature_set, sym, u)
 
     def _on_device(self, moves, targets, komi, labels):
         t = lambda a: torch.as_tensor(a, device=self.device)
@@ -345,11 +364,12 @@ def _augment(feats, labels, gen, feature_set, sym=None, u=None):
     return feats, labels
 
 
-def _bank_batch(bank_feats, bank_labels, idx, gen, augment, feature_set):
+def _bank_batch(bank_feats, bank_labels, idx, gen, augment, feature_set,
+                sym=None, u=None):
     """One batch gathered from the example bank, augmented as the
-    per-batch path is."""
+    per-batch path is (with the draws ``sym`` and ``u`` where given)."""
     feats = bank_feats[idx]
     labels = {k: v[idx] for k, v in bank_labels.items()}
     if not augment:
         return feats, labels
-    return _augment(feats, labels, gen, feature_set)
+    return _augment(feats, labels, gen, feature_set, sym, u)

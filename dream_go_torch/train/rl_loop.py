@@ -1,6 +1,5 @@
 """The closed reinforcement-learning loop: self-play -> replay -> learner
-(port of `dream_go_tpu/train/rl_loop.py`, one device; the mesh is left
-out).
+(port of `dream_go_tpu/train/rl_loop.py`).
 
 One in-process driver replaces the reference's file-and-shell pipeline
 (`README.md:63-93`: dream_go --self-play | sgf2big | sgf2balance | shuf ->
@@ -19,6 +18,14 @@ dream_tf --start -> --dump -> next generation).  Each generation:
 The actor and the dumps take the learner's raw parameters and running
 statistics, not the EMA that ``--dump`` writes: each generation folds a
 copy of them into an inference tower (bf16 on ``cuda``).
+
+With ``use_mesh`` every rank of the process group (`parallel/`) runs this
+loop: the ranks form a ``(data, mesh_model)`` mesh, each plays its share
+of the generation's games and re-searches its own games' ex-it positions,
+the lines are gathered, every rank builds the same example bank from the
+same seed and trains on its rows of each batch (a data-parallel learner,
+the policy head split over ``model``), and rank 0 writes the files while
+the others wait.  Only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -69,6 +76,8 @@ class RLLoopConfig:
     ex_it: bool = True
     out_dir: str | None = None
     seed: int = 0
+    use_mesh: bool = False              # actor and learner over every rank
+    mesh_model: int = 1                 # ranks the policy head splits over
     resume: bool = False                # continue from out_dir's last
     #                                     ckpt_NNNN, the replay refilled
     #                                     from its gen_NNNN.sgf
@@ -85,7 +94,7 @@ def serving_tower(trainer: Trainer, device) -> T.Tower:
     learner."""
     device = torch.device(device)
     cfg = trainer.model_cfg
-    sd = MP.fold_train(cfg, trainer.model.state_dict())
+    sd = MP.fold_train(cfg, trainer.state_dict())
     return T.from_state_dict(cfg, sd, device,
                              None if device.type == "cuda" else "float32")
 
@@ -93,15 +102,28 @@ def serving_tower(trainer: Trainer, device) -> T.Tower:
 def raw_weights_json(trainer: Trainer) -> str:
     """The weights JSON of the learner's raw parameters (not the EMA)."""
     cfg = trainer.model_cfg
-    return MP.dump_json(cfg, *MP.to_train_tree(cfg, trainer.model.state_dict()))
+    return MP.dump_json(cfg, *MP.to_train_tree(cfg, trainer.state_dict()))
 
 
 def run_rl_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 selfplay_cfg: SelfPlayConfig, search_cfg: SearchConfig,
                 loop_cfg: RLLoopConfig, log_fn=None,
                 device="cuda") -> Trainer:
-    """The product RL loop on ``device``; returns the trainer."""
+    """The product RL loop on ``device``; returns the trainer.  With
+    ``use_mesh`` it joins the process group first (a world of one outside
+    torchrun) and runs on this rank's device."""
+    from ..parallel import distributed as D
+
     log = log_fn or (lambda msg: print(msg, file=sys.stderr, flush=True))
+    mesh = None
+    if loop_cfg.use_mesh:
+        from ..parallel import mesh as M
+
+        device = D.initialize(device)
+        if not D.is_writer():
+            log = lambda msg: None  # noqa: E731
+        mesh = M.make_mesh(model=loop_cfg.mesh_model)
+        log(f"mesh: {mesh.shape}")
     device = torch.device(device)
     start_gen = 0
     trainer = None
@@ -135,6 +157,8 @@ def run_rl_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     if trainer is None:
         trainer = Trainer.create(model_cfg, train_cfg, seed=loop_cfg.seed,
                                  device=device)
+    if mesh is not None:
+        trainer.shard_over(mesh)
 
     # the fused leaf kernel, EARLY-C and the exact ladder reader on cuda
     # unless the caller turned them off; the portable path on the CPU
@@ -144,7 +168,7 @@ def run_rl_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         log(f"search: auto stack for {device.type} "
             f"(fused={search_cfg.fused}, adaptive={search_cfg.adaptive})")
     return _run_generations(trainer, train_cfg, selfplay_cfg, search_cfg,
-                            loop_cfg, log, start_gen, device)
+                            loop_cfg, log, start_gen, device, mesh)
 
 
 def _sync(device: torch.device) -> float:
@@ -156,7 +180,8 @@ def _sync(device: torch.device) -> float:
 def _run_generations(trainer: Trainer, train_cfg: TrainConfig,
                      selfplay_cfg: SelfPlayConfig, search_cfg: SearchConfig,
                      loop_cfg: RLLoopConfig, log, start_gen: int,
-                     device: torch.device) -> Trainer:
+                     device: torch.device, mesh=None) -> Trainer:
+    from ..parallel import distributed as D
     from ..selfplay.policy import PolicyPlayer, policy_self_play
     from ..selfplay.reanalyze import ex_it as run_ex_it
     from ..selfplay.search_play import search_self_play
@@ -181,21 +206,27 @@ def _run_generations(trainer: Trainer, train_cfg: TrainConfig,
         t_exit = 0.0
         if loop_cfg.use_search:
             games = search_self_play(predictor, sp_cfg, search_cfg,
-                                     seed=seed, device=device)
+                                     seed=seed, device=device, mesh=mesh)
             t_play = _sync(device) - t0
         else:
             games = policy_self_play(
                 PolicyPlayer(predictor,
                              ladder_features=sp_cfg.ladder_features),
-                sp_cfg, seed=seed, device=device)
+                sp_cfg, seed=seed, device=device, mesh=mesh)
             t_play = _sync(device) - t0
             if loop_cfg.ex_it:
-                games = run_ex_it(games, predictor, search_cfg,
+                # each rank re-searches its own games, then all gather
+                start, count = (0, len(games)) if mesh is None \
+                    else D.local_game_slice(len(games))
+                games = run_ex_it(games[start:start + count], predictor,
+                                  search_cfg,
                                   num_sims=selfplay_cfg.num_rollout,
                                   fraction=selfplay_cfg.ex_it_fraction,
                                   seed=seed,
                                   position_batch=loop_cfg.ex_it_batch,
                                   device=device)
+                if mesh is not None:
+                    games = D.all_gather_lines(games)
                 t_exit = _sync(device) - t0 - t_play
 
         replay.extend(games)
@@ -217,22 +248,27 @@ def _run_generations(trainer: Trainer, train_cfg: TrainConfig,
         metrics = trainer.fit(source, loop_cfg.train_steps_per_generation,
                               log_every=0)
         t_train = _sync(device) - t1 - t_bank
+        # on a mesh every rank builds the same bank (the cost is logged)
+        ranks = "" if mesh is None else f" on each of {D.world_size()} ranks"
         log(f"gen {gen}: loss {metrics.get('loss', float('nan')):.4f} "
             f"top1 {metrics.get('policy_top1', 0.0):.3f} "
             f"lr {trainer.scheduler.learning_rate:.2e} "
-            f"[bank {t_bank:.2f}s, train {t_train:.2f}s]")
+            f"[bank {t_bank:.2f}s{ranks}, train {t_train:.2f}s]")
 
         if loop_cfg.out_dir:
-            os.makedirs(loop_cfg.out_dir, exist_ok=True)
-            with open(os.path.join(loop_cfg.out_dir,
-                                   f"gen_{gen:04d}.sgf"), "w") as fh:
-                fh.write("\n".join(games) + "\n")
+            # every rank gathers the split tensors, rank 0 writes
             trainer.save(os.path.join(loop_cfg.out_dir, f"ckpt_{gen:04d}"))
             blob = raw_weights_json(trainer)
-            # the latest weights, and a copy a generation for arenas
-            for name in ("dream_go.json", f"weights_{gen:04d}.json"):
-                with open(os.path.join(loop_cfg.out_dir, name), "w") as fh:
-                    fh.write(blob)
+            if D.is_writer():
+                with open(os.path.join(loop_cfg.out_dir,
+                                       f"gen_{gen:04d}.sgf"), "w") as fh:
+                    fh.write("\n".join(games) + "\n")
+                # the latest weights, and a copy a generation for arenas
+                for name in ("dream_go.json", f"weights_{gen:04d}.json"):
+                    with open(os.path.join(loop_cfg.out_dir, name),
+                              "w") as fh:
+                        fh.write(blob)
+            D.barrier()
         if trainer.scheduler.should_stop:
             log(f"gen {gen}: learning rate floor reached, stopping")
             break

@@ -1,5 +1,5 @@
 """Train and eval steps, the EMA, checkpoints and the driver loop (port of
-`dream_go_tpu/train/train_loop.py`; the mesh and orbax are left out):
+`dream_go_tpu/train/train_loop.py`; orbax is left out):
 
 - Adam at the scheduler's learning rate, plus the reference's *decoupled*
   L2: conv and dense kernels lose ``1e-4 * w`` a step, not scaled by the
@@ -18,7 +18,15 @@
 - checkpoints are one ``torch.save`` file holding the parameters and
   running statistics, the optimizer, the step, the EMA, the scheduler and
   the hyperparameters; they cannot read the JAX package's orbax
-  checkpoints.
+  checkpoints;
+- on a mesh (:meth:`Trainer.shard_over`, JAX's ``shard_over``) each rank
+  trains on its rows of every global batch: the batch norms' statistics
+  and, after the backward pass, the gradients (one flattened all-reduce)
+  are the whole batch's, and the metrics that feed the scheduler are
+  summed over the data group, so every rank takes the same steps.  With
+  ``model > 1`` the policy head's weight, its Adam moments and its EMA
+  are split by output column; checkpoints and dumps gather them whole,
+  rank 0 writes, and a checkpoint restores on any mesh or none.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import ModelConfig, TrainConfig
@@ -90,18 +99,52 @@ def _autocast(cfg: ModelConfig, device: torch.device):
                           enabled=on)
 
 
+def _metrics(out, labels, train_cfg: TrainConfig, mesh=None):
+    """``(loss, metrics)`` of a batch; on a mesh the metrics (detached)
+    are the global batch's: means averaged over the data group, the
+    ownership accuracy from its summed counts."""
+    loss, metrics = losses.total_loss(out, labels, train_cfg)
+    if mesh is None:
+        return loss, metrics
+    names = [k for k in metrics if k != "ownership_accuracy"]
+    hits, counted = losses.ownership_counts(out[2].detach(), labels)
+    vals = torch.stack([metrics[k].detach().float() for k in names]
+                       + [hits.float(), counted.float()])
+    dist.all_reduce(vals, group=mesh.data_group)
+    out = {k: vals[i] / mesh.data for i, k in enumerate(names)}
+    out["ownership_accuracy"] = vals[-2] / torch.clamp(vals[-1], min=1.0)
+    return loss, {k: out[k] for k in metrics}
+
+
+@torch.no_grad()
+def sync_gradients(model: nn.Module, mesh) -> None:
+    """Average every parameter's gradient over the data group, as one
+    flattened all-reduce."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    grads = [p.grad for p in model.parameters()]
+    flat = _flatten_dense_tensors(grads)
+    dist.all_reduce(flat, group=mesh.data_group)
+    flat.div_(mesh.data)
+    torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+
+
 def train_step(model: T.TrainTower, optimizer: torch.optim.Optimizer,
-               train_cfg: TrainConfig, feats, labels, learning_rate: float):
-    """One optimization step on ``feats`` (NHWC) and ``labels``; returns the
-    metrics (0-d tensors)."""
+               train_cfg: TrainConfig, feats, labels, learning_rate: float,
+               mesh=None):
+    """One optimization step on ``feats`` (NHWC) and ``labels``, this
+    rank's rows of the global batch on a ``mesh``; returns the metrics
+    (0-d tensors, the global batch's on a mesh)."""
     model.train()
     for group in optimizer.param_groups:
         group["lr"] = learning_rate
     with _autocast(model.cfg, feats.device):
         out = model(feats.permute(0, 3, 1, 2))
-    loss, metrics = losses.total_loss(out, labels, train_cfg)
+    loss, metrics = _metrics(out, labels, train_cfg, mesh)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        sync_gradients(model, mesh)
     with torch.no_grad():
         kernels = decay_params(model)
         torch._foreach_add_(kernels, kernels, alpha=-train_cfg.l2_coef)
@@ -112,18 +155,27 @@ def train_step(model: T.TrainTower, optimizer: torch.optim.Optimizer,
 
 
 @torch.no_grad()
-def eval_step(model: T.TrainTower, train_cfg: TrainConfig, feats, labels):
+def eval_step(model: T.TrainTower, train_cfg: TrainConfig, feats, labels,
+              mesh=None):
     """The metrics of ``feats`` with the running statistics."""
     model.eval()
     with _autocast(model.cfg, feats.device):
         out = model(feats.permute(0, 3, 1, 2))
-    return losses.total_loss(out, labels, train_cfg)[1]
+    return _metrics(out, labels, train_cfg, mesh)[1]
 
 
 def make_optimizer(model: nn.Module, lr: float) -> torch.optim.Adam:
     """Adam with optax's defaults; the decoupled L2 is applied apart."""
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8)
+
+
+def _own_state(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's ``state_dict`` with per-parameter state dicts of
+    its own (``state_dict`` shares them with the live optimizer)."""
+    sd = optimizer.state_dict()
+    sd["state"] = {i: dict(st) for i, st in sd["state"].items()}
+    return sd
 
 
 @dataclasses.dataclass
@@ -140,6 +192,7 @@ class Trainer:
     step: int = 0
     ema: dict | None = None
     ema_decay: float = EMA_DECAY
+    mesh: object = None
 
     @staticmethod
     def create(model_cfg: ModelConfig, train_cfg: TrainConfig,
@@ -154,6 +207,49 @@ class Trainer:
                        LearningRateScheduler(lr, train_cfg.lr_decay),
                        ema={k: p.detach().float().clone()
                             for k, p in model.named_parameters()})
+
+    def shard_over(self, mesh) -> "Trainer":
+        """Train on ``mesh`` (:mod:`..parallel.mesh`): synced batch norm,
+        and with ``model > 1`` this rank's columns of the policy head,
+        of its Adam moments and of its EMA."""
+        from ..parallel import mesh as M
+
+        names = [k for k, _ in self.model.named_parameters()]
+        opt_sd = _own_state(self.optimizer)
+        self.model.shard_over(mesh)
+        if self.model.policy_split is not None:
+            _, lo, hi = self.model.policy_split
+            for name, dim in M.param_sharding(mesh, names).items():
+                if dim is None:
+                    continue
+                state = opt_sd["state"].get(names.index(name), {})
+                for key in ("exp_avg", "exp_avg_sq"):
+                    if key in state:
+                        state[key] = state[key][lo:hi].clone()
+                if self.ema is not None:
+                    self.ema[name] = self.ema[name][lo:hi].clone()
+            self.optimizer = make_optimizer(self.model, 0.0)
+            self.optimizer.load_state_dict(opt_sd)
+        self.mesh = mesh
+        return self
+
+    def _whole(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (this rank's share of parameter ``name``, or a tensor of
+        its shape) gathered whole over the model group."""
+        from ..parallel import mesh as M
+
+        split = self.model.policy_split
+        if split is None or name not in M.MODEL_SPLIT:
+            return x
+        group, lo, _ = split
+        return M.gather_rows(x.detach(), group, lo, 362)
+
+    def state_dict(self) -> dict:
+        """The tower's ``state_dict`` with every parameter whole (a
+        collective on a mesh split over ``model``: every rank calls
+        it)."""
+        return {k: self._whole(k, v)
+                for k, v in self.model.state_dict().items()}
 
     @torch.no_grad()
     def _ema_update(self):
@@ -173,14 +269,18 @@ class Trainer:
         writer = MetricsWriter(metrics_path) if metrics_path else None
         last_metrics = {}
         try:
-            for i, (feats, labels) in enumerate(source.batches(num_steps)):
+            for i, (feats, labels) in enumerate(self._batches(source,
+                                                              num_steps)):
                 lr = self.scheduler.learning_rate
                 metrics = train_step(self.model, self.optimizer,
-                                     self.train_cfg, feats, labels, lr)
+                                     self.train_cfg, feats, labels, lr,
+                                     self.mesh)
                 self.step += 1
                 if self.ema is not None:
                     self._ema_update()
-                last_metrics = {k: float(v) for k, v in metrics.items()}
+                # one copy to the host (a synchronisation) for them all
+                last_metrics = dict(zip(metrics, torch.stack(
+                    list(metrics.values())).tolist()))
                 loss = last_metrics["loss"]
                 self.scheduler.update(loss)
                 last_metrics["learning_rate"] = lr
@@ -199,22 +299,29 @@ class Trainer:
                 writer.close()
         return last_metrics
 
+    def _batches(self, source, num_batches: int):
+        """The source's batches, this rank's rows of each on a mesh."""
+        if self.mesh is None:
+            return source.batches(num_batches)
+        return source.batches(
+            num_batches, rows=self.mesh.local_rows(source.batch_size))
+
     def evaluate(self, source, num_batches: int) -> dict:
         agg: dict[str, float] = {}
         n = 0
-        for feats, labels in source.batches(num_batches):
+        for feats, labels in self._batches(source, num_batches):
             for k, v in eval_step(self.model, self.train_cfg, feats,
-                                  labels).items():
+                                  labels, self.mesh).items():
                 agg[k] = agg.get(k, 0.0) + float(v)
             n += 1
         return {k: v / max(n, 1) for k, v in agg.items()}
 
     def dump_params(self) -> dict:
-        """The tower's ``state_dict`` for the weights dump: the EMA's
-        parameters where tracked, the running statistics."""
-        sd = dict(self.model.state_dict())
+        """The tower's ``state_dict`` for the weights dump, whole: the
+        EMA's parameters where tracked, the running statistics."""
+        sd = self.state_dict()
         if self.ema is not None:
-            sd.update(self.ema)
+            sd.update({k: self._whole(k, v) for k, v in self.ema.items()})
         return sd
 
     def dump_json(self) -> str:
@@ -226,17 +333,31 @@ class Trainer:
 
     def save(self, path: str):
         """Write the checkpoint to ``path`` (a file; its directory is
-        made), through a temporary file renamed into place."""
+        made), through a temporary file renamed into place.  On a mesh
+        every rank calls it and rank 0 writes the whole tensors."""
+        from ..parallel import distributed as D
+
+        names = [k for k, _ in self.model.named_parameters()]
+        opt_sd = _own_state(self.optimizer)
+        for i, name in enumerate(names):
+            for key, v in opt_sd["state"].get(i, {}).items():
+                if key != "step":
+                    opt_sd["state"][i][key] = self._whole(name, v)
+        model_sd = self.state_dict()
+        ema = None if self.ema is None else {
+            k: self._whole(k, v) for k, v in self.ema.items()}
+        if not D.is_writer():
+            return
         path = os.path.abspath(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         sched = self.scheduler.state_dict()
         sched["losses"] = torch.from_numpy(np.asarray(sched["losses"]))
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save({
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": model_sd,
+            "optimizer": opt_sd,
             "step": self.step,
-            "ema": self.ema,
+            "ema": ema,
             "scheduler": sched,
             "hyper": {
                 "num_channels": self.model_cfg.num_channels,
