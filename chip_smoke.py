@@ -49,7 +49,7 @@ Phases, in order, each printed with its seconds:
    planes off, planes on (fused), planes on with the feature kernel
    (unfused), unfused leaves stepped by the env-step kernel, and the V2
    plane set (unfused, the predictor on 18 planes), 8 moves each (V2 6);
-   then one deep search, 100 rollouts from 8 boards, whose trees on the card and
+   then one deep search, 50 rollouts from 8 boards, whose trees on the card and
    on the CPU are equal in every field.  The CPU sides of this phase and
    of the serve phase run in two spawned processes of their own while
    the card runs;
@@ -73,13 +73,13 @@ Phases, in order, each printed with its seconds:
      ex-it lines of the three sample games, 16 rollouts, equal on the
      card and on the CPU (computed meanwhile in a process of its own;
      any ``?`` answer fails the run); then ``cli.main(["--gtp", ...])``
-     at 128 x 9 on swapped stdin/stdout: ten 100-rollout genmoves, the
-     same position again with one genmove at ``DEEP_ROLLOUTS`` = 400
+     at 128 x 9 on swapped stdin/stdout: five 100-rollout genmoves, the
+     same position again with one genmove at ``DEEP_ROLLOUTS`` = 200
      rollouts (cut from the CLI's default 1600) and final_score (K1 once
      per simulation), three genmoves and
      final_score with ``--weights tests/fixtures/sanity_net.json`` (K2),
      and ``--ponder`` (a move, 2 s, a genmove that continues the
-     pondered tree); then ``--reanalyze`` of two self-play games of
+     pondered tree); then ``--reanalyze`` of one self-play game of
      the rl20 run at 100 rollouts (every line parses, every patched
      move carries ``TV[100]`` and a 362-entry policy); genmove latency,
      final_score seconds, take()'s wait and positions/s are logged;
@@ -96,11 +96,12 @@ Phases, in order, each printed with its seconds:
      CPU's (losses, gradients, running statistics, parameters after Adam,
      each within its stated limit);
    - the closed RL loop (the loop phase) through ``cli.main`` at the
-     CLI's width and batch (128 x 9, B = 2048, 256 train steps a
-     generation): ``--loop 2 --ex-it --ladder-features`` with 32 policy
-     games of 120 moves a generation, ex-it at 16 rollouts and banks of
-     256 games, then ``--loop 3 --resume-loop --warm-restart`` on the
-     same directory: each generation's files, every SGF line well
+     CLI's width and batch (128 x 9, B = 2048, ``--steps-per-gen 64``
+     train steps a generation): ``--loop 2 --ex-it --ladder-features``
+     with 32 policy games of 60 moves a generation, ex-it at 16
+     rollouts and banks of 256 games, then ``--loop 3 --resume-loop
+     --warm-restart`` on the same directory: each generation's files,
+     every SGF line well
      formed, the step counts, the resume and warm-restart lines, finite
      losses, the leaf-step, ladder and feature kernels launched (the
      env-step kernel not), a genmove served from ``weights_0002.json``,
@@ -116,7 +117,7 @@ Phases, in order, each printed with its seconds:
      --nproc-per-node 2 -m dream_go_torch.cli --loop 1 --mesh --ex-it
      --ladder-features`` at the loop phase's width, batch and cuts, two
      ranks sharing the card over gloo (1024 examples a rank): the
-     ``mesh:`` line, 32 well-formed games, step 256, a finite loss,
+     ``mesh:`` line, 32 well-formed games, step 64, a finite loss,
      ``weights_0000.json``, and K1, K2 and K3b launched (each rank prints
      its counts, the phase sums them); then one float32 train step at 128
      x 9, B = 64, on two ranks (data 2, then model 2 with the policy head
@@ -134,7 +135,26 @@ Phases, in order, each printed with its seconds:
      ``train_supervised`` steps at 128 x 9, batch 512, on
      ``models/rl20/gen_0047.sgf`` from banks of 64 games (K3b in each
      bank); ``sgf2score`` of eight rl20 games, card lines equal to the
-     CPU's;
+     CPU's; then the other tools, each cut in depth:
+     ``ladder_differential`` of 200 random positions (K2 against the
+     recursive oracle at every candidate point, disagreeing on at most
+     0.1%), ``fuzz2gtp`` (30 genmoves, no malformed answer),
+     ``bench_selfplay`` (batch 64, 16 rollouts, planes on),
+     ``profile_flat`` at B=256 (every variant), ``profile_ladder
+     --skip-search`` at B=1024, ``measure_ladder_cost`` at B=256,
+     ``measure_eval_dupes``, ``measure_ladder_greedy``, one round of
+     ``tune`` (2 games), and ``sgf2array`` of two rl20 games, card arrays
+     equal to the CPU's; each tool's launches (K1 and K2) checked;
+   - the workers and the trainer over one ``--root`` (the distr phase),
+     at 128 x 9 in this process: a policy-play round of 64 games cut at
+     40 moves with planes 30/31 on random weights (K2), a trainer
+     generation of 32 steps at B = 256 from a bank of 64 games x 8
+     positions (K3b, K2) whose published weights' bf16 eval matches the
+     trainer's float32 net within the sanity net's limits, a second round
+     on those weights (generation 0), a trainer generation resumed from
+     its ``torch.save`` checkpoint, and a search-mode round of 8 games x
+     8 moves x 16 rollouts on generation 1 (K1, K2); every game well
+     formed and parsed;
    - the benchmark entry, ``dream_go_torch.bench.main`` in this process
      with ``--full`` and two cuts, ``--selfplay-rollouts 64
      --selfplay-window 60``: the env stage (4096 boards, 151 env-step
@@ -189,17 +209,19 @@ STEP_GAMES, STEP_ROLLOUTS, STEP_MOVES = 64, 16, 8
 #: budget, 1600, takes ~340 s on the card and ~310 s on the CPU, more than
 #: the smoke's time allows; 400 took ~145 s on a slow host, cut to 200 to
 #: make room for the loop and distill phases, then to 100 for the mesh
-#: and tools phases)
-REF_BOARDS, REF_SIMS = 8, 100
+#: and tools phases, then to 50 for the distr phase and the other tools)
+REF_BOARDS, REF_SIMS = 8, 50
 #: the serve phase: genmoves at 100 rollouts, then one at
 #: ``DEEP_ROLLOUTS`` (cut from the CLI's default 1600, which took 39–63
-#: s, for the mesh and tools phases), three with the sanity net, seconds
-#: of pondering, self-play games reanalyzed (cut from eight); the
+#: s, to 400 for the mesh and tools phases, then to 200), three with the
+#: sanity net, seconds of pondering, self-play games reanalyzed (cut from
+#: eight to two, then to one; the 100-rollout genmoves from ten to five,
+#: for the distr phase and the other tools); the
 #: card-against-CPU session's rollouts and the move cap of its loaded
 #: game (late in sample game 3, so the greedy scorer plays ~20 moves)
-SERVE_ROLLOUTS, SERVE_GENMOVES, SANITY_GENMOVES = 100, 10, 3
-DEEP_ROLLOUTS = 400
-PONDER_WAIT, REANALYZE_GAMES = 2.0, 2
+SERVE_ROLLOUTS, SERVE_GENMOVES, SANITY_GENMOVES = 100, 5, 3
+DEEP_ROLLOUTS = 200
+PONDER_WAIT, REANALYZE_GAMES = 2.0, 1
 #: the first eight games of `models/rl20/gen_0000.sgf` (generation 0 of the
 #: rl20 run; the generation files themselves are not committed)
 REANALYZE_FILE = "tests/fixtures/rl20_gen0000_first8.sgf"
@@ -225,30 +247,59 @@ TRAIN_DIR = "build/smoke"
 TRAIN_STEPS, RESUME_STEPS = 20, 5
 TRAIN_GENMOVES, TRAIN_ROLLOUTS = 2, 16
 #: the loop phase: ``--loop 2``, then ``--loop 3 --resume-loop
-#: --warm-restart``, at the CLI's width and batch (128 x 9, B = 2048, 256
-#: train steps a generation), cut in depth: games a generation, ex-it
-#: rollouts, the game length and the example bank
+#: --warm-restart``, at the CLI's width and batch (128 x 9, B = 2048), cut
+#: in depth: games a generation, ex-it rollouts, the game length (120
+#: moves, then 60 for the distr phase and the other tools), the example
+#: bank, and the train steps a generation (the loop's 256, then 64 for
+#: the distr phase and the other tools: the mesh loop's 256 steps on two
+#: ranks sharing the card took ~100 s)
 LOOP_DIR = "build/smoke_loop"
-LOOP_GAMES, LOOP_ROLLOUTS, LOOP_MOVES, LOOP_BANK = 32, 16, 120, 256
-LOOP_STEPS = 256
+LOOP_GAMES, LOOP_ROLLOUTS, LOOP_MOVES, LOOP_BANK = 32, 16, 60, 256
+LOOP_STEPS = 64
 #: the mesh phase: ``--loop 1 --mesh`` on two ranks sharing the card
 #: (gloo) at the loop phase's cuts, killed after ``MESH_LOOP_TIMEOUT``
 #: seconds (its 256 steps took 95.7 s of the 120 s first allowed, at 374
 #: ms a step); every other group of ranks is killed after
 #: ``MESH_TIMEOUT``; a step's parts timed over these many steps and
-#: collectives
+#: collectives (10 and 50, halved for the distr phase and the other
+#: tools)
 MESH_DIR = "build/smoke_mesh"
 MESH_RANKS = 2
 MESH_LOOP_TIMEOUT, MESH_TIMEOUT = 240.0, 120.0
-MESH_TIMED_STEPS, MESH_TIMED_REDUCES = 10, 50
+MESH_TIMED_STEPS, MESH_TIMED_REDUCES = 5, 25
 #: the tools phase: arena pairs of the loop phase's three generations,
 #: games a pair and moves a game, in policy play and in 16-rollout search
-#: play; supervised training at 128 x 9 on `models/rl20/gen_0047.sgf`,
+#: play (4 games a pair, then 2 for the distr phase and the other
+#: tools); supervised training at 128 x 9 on `models/rl20/gen_0047.sgf`,
 #: from banks of 64 games (its default, a fresh replay of 64 games a
 #: batch, took 2.5 s a step)
 ARENA_GAMES, ARENA_MOVES = 8, 20
-ARENA_SEARCH_GAMES, ARENA_ROLLOUTS, ARENA_SEARCH_MOVES = 4, 16, 1
+ARENA_SEARCH_GAMES, ARENA_ROLLOUTS, ARENA_SEARCH_MOVES = 2, 16, 1
 SUPERVISED_STEPS, SUPERVISED_BATCH, SUPERVISED_BANK = 20, 512, 64
+#: the tools phase's other tools, cut in depth: ``ladder_differential``
+#: positions; ``fuzz2gtp`` genmoves; ``bench_selfplay`` batch, rollouts,
+#: games, ramp games and moves; ``profile_flat``'s batch, simulations a
+#: call and calls; ``profile_ladder``'s repeats (at its B=1024);
+#: ``measure_ladder_cost``'s batch, simulations and calls;
+#: ``measure_eval_dupes``'s simulations; ``measure_ladder_greedy``'s
+#: points; ``tune``'s games, simulations and moves
+DIFF_POSITIONS, FUZZ_MOVES = 200, 30
+SPB_BATCH, SPB_ROLLOUTS, SPB_GAMES, SPB_RAMP, SPB_MOVES = 64, 16, 8, 2, 8
+FLAT_BATCH, FLAT_SIMS, FLAT_REPEAT = 256, 4, 3
+PLADDER_REPEATS = 3
+LCOST_BATCH, LCOST_SIMS, LCOST_REPS = 256, 4, 2
+DUPES_SIMS, GREEDY_POINTS = 32, 2000
+TUNE_GAMES, TUNE_SIMS, TUNE_MOVES = 2, 16, 16
+#: the distr phase: self-play workers and the trainer over one ``--root``
+#: at 128 x 9: a policy-play round of ``DISTR_GAMES`` games cut at
+#: ``DISTR_MOVES`` moves (the trainer keeps games of 30 moves or more), a
+#: trainer generation of ``DISTR_STEPS`` steps at B = ``DISTR_BATCH`` from
+#: a bank of ``DISTR_BANK`` games x ``DISTR_POSITIONS`` positions, a second
+#: policy round, a resumed trainer generation, then a search-mode round
+DISTR_DIR = "build/smoke_distr"
+DISTR_GAMES, DISTR_MOVES = 64, 40
+DISTR_BATCH, DISTR_STEPS, DISTR_BANK, DISTR_POSITIONS = 256, 32, 64, 8
+DISTR_SEARCH_GAMES, DISTR_SEARCH_MOVES, DISTR_ROLLOUTS = 8, 8, 16
 #: the distill phase: a random leela-zero teacher at the width of public
 #: leela-zero nets (192 filters, 15 blocks), its kernels rescaled so that
 #: its outputs do not saturate; ``--start --lz-weights`` for a few steps
@@ -1656,7 +1707,8 @@ def loop_phase(dev):
     argv = ["--out-dir", out, "--ex-it", "--ladder-features",
             "--num-games", str(LOOP_GAMES), "--num-rollout",
             str(LOOP_ROLLOUTS), "--max-moves", str(LOOP_MOVES),
-            "--bank-games", str(LOOP_BANK), "--seed", "0"]
+            "--bank-games", str(LOOP_BANK), "--steps-per-gen",
+            str(LOOP_STEPS), "--seed", "0"]
     args = cli.build_parser().parse_args(["--loop", "2", *argv])
     check((args.num_channels, args.num_blocks, args.batch_size,
            args.positions_per_game) == (128, 9, 2048, 8),
@@ -2024,7 +2076,8 @@ def mesh_phase(dev):
             "--loop", "1", "--mesh", "--ex-it", "--ladder-features",
             "--out-dir", out, "--num-games", str(LOOP_GAMES),
             "--num-rollout", str(LOOP_ROLLOUTS), "--max-moves",
-            str(LOOP_MOVES), "--bank-games", str(LOOP_BANK), "--seed", "0",
+            str(LOOP_MOVES), "--bank-games", str(LOOP_BANK),
+            "--steps-per-gen", str(LOOP_STEPS), "--seed", "0",
             "--device", dev.type]
     lines, wall = run_group("--loop 1 --mesh", argv, MESH_LOOP_TIMEOUT)
     text = "\n".join(lines)
@@ -2227,7 +2280,212 @@ def tools_phase(dev):
           "sgf2score: the card's lines differ from the CPU's")
     phase("tools", t0, f"sgf2score of {len(lines)} games: card == cpu, "
           f"results {[re.search(r'RE.([^]]*)', l).group(1) for l in card]}")
+    more_tools(dev, total)
     phase("tools", t_phase, "the tools phase")
+    return total
+
+
+def more_tools(dev, total):
+    """The port's other tools on the card, each cut in depth, launch
+    counts zeroed before and read after and added to ``total``: the
+    ladder kernel against the recursive oracle, the GTP fuzzer, sustained
+    self-play, the in-loop ablation, the ladder planes' cost (alone and
+    in the search), repeated leaf evaluations, greedy against exact
+    ladders, a tuning match, and ``sgf2array`` (card == CPU)."""
+    import io
+    import tempfile
+
+    from dream_go_torch.tools import (bench_selfplay, fuzz2gtp,
+                                      ladder_differential, measure_eval_dupes,
+                                      measure_ladder_cost,
+                                      measure_ladder_greedy, profile_flat,
+                                      profile_ladder, sgf2array, tune)
+
+    d = ["--device", dev.type]
+    runs = [
+        ("ladder_differential", ladder_differential.main,
+         ["--positions", str(DIFF_POSITIONS)], ("ladder_planes",)),
+        ("fuzz2gtp", fuzz2gtp.main, ["--moves", str(FUZZ_MOVES)],
+         ("leaf_step",)),
+        ("bench_selfplay", bench_selfplay.main,
+         ["--batch", str(SPB_BATCH), "--rollout", str(SPB_ROLLOUTS),
+          "--games", str(SPB_GAMES), "--warmup-games", str(SPB_RAMP),
+          "--max-moves", str(SPB_MOVES), "--ladder-features"],
+         ("leaf_step", "ladder_planes")),
+        ("profile_flat", profile_flat.main,
+         ["--batch", str(FLAT_BATCH), "--sims", str(FLAT_SIMS), "--repeat",
+          str(FLAT_REPEAT)], ("leaf_step", "board_features_raw")),
+        ("profile_ladder", profile_ladder.main,
+         ["--skip-search", "--repeats", str(PLADDER_REPEATS)],
+         ("ladder_planes",)),
+        ("measure_ladder_cost", measure_ladder_cost.main,
+         ["--batch", str(LCOST_BATCH), "--sims", str(LCOST_SIMS), "--reps",
+          str(LCOST_REPS)], ("leaf_step", "ladder_planes")),
+        ("measure_eval_dupes", measure_eval_dupes.main,
+         ["--sims", str(DUPES_SIMS)], ("leaf_step",)),
+        ("measure_ladder_greedy", measure_ladder_greedy.main,
+         ["--points", str(GREEDY_POINTS)], ("ladder_planes",)),
+        ("tune", tune.main,
+         ["--rounds", "1", "--games", str(TUNE_GAMES), "--sims",
+          str(TUNE_SIMS), "--max-moves", str(TUNE_MOVES)], ("leaf_step",)),
+    ]
+    results = {}
+    for name, main, argv, expect in runs:
+        out, launches, wall = tool_run(name, main, argv + d)
+        for k in expect:
+            check(launches[k] > 0, f"{name} never launched {k}: {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        results[name] = out
+        phase("tools", time.monotonic() - wall,
+              f"{name} {' '.join(argv)}: {out[-1]}, launches {launches}")
+    diff = json.loads(results["ladder_differential"][-1])
+    check(diff["positions"] == DIFF_POSITIONS
+          and diff["disagree_rate"] <= 0.001 and diff["total_points"] > 0,
+          f"ladder_differential: {diff}")
+    log(f"  ladder_differential: {diff['total_disagree']} of "
+        f"{diff['total_points']} candidate points disagree "
+        f"({diff['disagree_rate']:.6f}); the oracle's games "
+        f"{diff['play_seconds']} s, the replay and K2 "
+        f"{diff['planes_seconds']} s, the oracle's readings "
+        f"{diff['oracle_seconds']} s")
+    check(json.loads(results["fuzz2gtp"][-1])["failures"] == 0,
+          "fuzz2gtp: a malformed answer")
+    spb = json.loads(results["bench_selfplay"][-1])
+    check(spb["games"] == SPB_GAMES + SPB_RAMP and spb["sims"] > 0
+          and spb["ladder_features"], f"bench_selfplay: {spb}")
+    flat = json.loads(results["profile_flat"][-1])
+    check(all(flat[k] > 0 for k in profile_flat.VARIANTS),
+          f"profile_flat: {flat}")
+    check(re.match(r"UCT_EXP=[\d.]+ \(winrate [\d.]+ vs baseline\)$",
+                   results["tune"][-1]), f"tune: {results['tune'][-1]}")
+    t0 = time.monotonic()
+    with open(REANALYZE_FILE) as fh:
+        text = "".join(fh.readlines()[:2])
+    arrays = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in (dev.type, "cpu"):
+            path = os.path.join(tmp, f"{where}.npz")
+            sys.stdin = io.StringIO(text)
+            try:
+                tool_run("sgf2array", sgf2array.main,
+                         [path, "--device", where])
+            finally:
+                sys.stdin = sys.__stdin__
+            with np.load(path) as z:
+                arrays.append({k: z[k] for k in z.files})
+    check(sorted(arrays[0]) == sorted(arrays[1]) and len(arrays[0]) == 10
+          and all(np.array_equal(arrays[0][k], arrays[1][k])
+                  for k in arrays[0]), "sgf2array: card != cpu")
+    phase("tools", t0, "sgf2array of two rl20 games: card == cpu")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 5c'. self-play workers and the trainer over shared storage
+
+
+def distr_phase(dev):
+    """``dream_go_torch.distr_env``'s worker and trainer in this process
+    over one ``--root`` at 128 x 9, launch counts zeroed before and read
+    after each step: a policy-play round on random weights with planes
+    30/31 (K2), a trainer generation (K3b and K2 in its bank) whose
+    published weights' bf16 eval must match the trainer's float32 net
+    within the sanity net's limits, a second round on those weights, a
+    resumed trainer generation, and a search-mode round on generation 1
+    (K1, K2).  Every game must be well formed and parse."""
+    import shutil
+
+    from dream_go_torch.distr_env import dg_storage, run_train, run_worker
+    from dream_go_torch.models import params as MP
+    from dream_go_torch.models import tower as T
+    from dream_go_torch.train.train_loop import Trainer
+    from dream_go_torch.utils import sgf
+
+    t_phase = time.monotonic()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        DISTR_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--root", root, "--device", dev.type]
+    policy = ["--games", str(DISTR_GAMES), "--rounds", "1", "--max-moves",
+              str(DISTR_MOVES)]
+    train = ["--batch-size", str(DISTR_BATCH), "--steps-per-gen",
+             str(DISTR_STEPS), "--min-new-games", str(DISTR_GAMES),
+             "--rounds", "1", "--ladder-features", "--bank-games",
+             str(DISTR_BANK), "--positions-per-game", str(DISTR_POSITIONS)]
+    steps = [
+        ("worker 0", run_worker.main, policy + [
+            "--ladder-features", "--worker-id", "smoke0", "--seed", "0"],
+         "weights generation -1", ("ladder_planes",)),
+        ("trainer 0", run_train.main, train, "trainer: gen 0 ",
+         ("ladder_planes", "board_features_raw")),
+        ("worker 1", run_worker.main, policy + [
+            "--worker-id", "smoke1", "--seed", "1"],
+         "weights generation 0", ("ladder_planes",)),
+        ("trainer 1", run_train.main, train, "trainer: gen 1 ",
+         ("ladder_planes", "board_features_raw")),
+        ("worker 2", run_worker.main, [
+            "--games", str(DISTR_SEARCH_GAMES), "--rounds", "1",
+            "--max-moves", str(DISTR_SEARCH_MOVES), "--num-rollout",
+            str(DISTR_ROLLOUTS), "--worker-id", "smoke2"],
+         "weights generation 1", ("leaf_step", "ladder_planes")),
+    ]
+    total = {}
+    for name, main, argv, expect, needs in steps:
+        out, launches, wall = tool_run(name, main, common + argv)
+        text = "\n".join(out)
+        check(expect in text, f"distr {name}: no {expect!r} in {out}")
+        for k in needs:
+            check(launches[k] > 0, f"distr {name} never launched {k}: "
+                  f"{launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        phase("distr", time.monotonic() - wall,
+              f"{name}: {out[-1]}, {wall:.2f} s, launches {launches}")
+        if name == "trainer 0":
+            t0 = time.monotonic()
+            _, path = dg_storage.latest_weights(root)
+            with open(path) as fh:
+                cfg, folded = MP.load_json(fh.read())
+            check((cfg.num_channels, cfg.num_blocks, cfg.ladder_features)
+                  == (128, 9, True), f"the published net is {cfg}")
+            served = T.from_state_dict(cfg, MP.to_state_dict(cfg, folded),
+                                       dev)
+            trainer = Trainer.restore(os.path.join(root,
+                                                   run_train.CHECKPOINT),
+                                      device=dev)
+            learner = T.from_state_dict(
+                cfg, MP.fold_train(cfg, trainer.state_dict()), dev,
+                "float32")
+            planes = torch.from_numpy((np.random.default_rng(1).random(
+                (16, 32, 19, 19)) < 0.3).astype(np.float32)).to(dev)
+            with torch.no_grad():
+                logits, value, _ = served(planes.to(torch.bfloat16))
+                logits32, value32, _ = learner(planes)
+            gaps = bf16_gaps((value + 1) / 2,
+                             torch.softmax(logits.float(), -1),
+                             ((value32 + 1) / 2).cpu(),
+                             torch.softmax(logits32, -1).cpu())
+            limits = (BF16_VALUE_ATOL, BF16_POLICY_ATOL, BF16_POLICY_KL)
+            check(all(g <= lim for g, lim in zip(gaps, limits)),
+                  f"the published weights' bf16 eval is off the trainer's "
+                  f"float32 net by {gaps} (limits {limits})")
+            phase("distr", t0, f"weights_000000.json (128x9, planes on) "
+                  f"in bf16 vs the trainer's float32 net at step "
+                  f"{trainer.step}: max |dv|, |dp|, KL {gaps} (limits "
+                  f"{limits})")
+    lines = dg_storage.new_games(root, set())[0]
+    check(len(lines) == 2 * DISTR_GAMES + DISTR_SEARCH_GAMES,
+          f"distr: {len(lines)} games")
+    moves = 0
+    for line in lines:
+        check(sgf.parse_line(line) is not None, f"unparsed: {line[:200]}")
+        if "TV[" in line:
+            moves += check_sgf(line, DISTR_ROLLOUTS)
+        else:
+            moves += check_loop_sgf(line, 1)[0]
+    phase("distr", t_phase, f"{len(lines)} games ({moves} moves) parse, "
+          f"2 generations published, launches {total}")
     return total
 
 
@@ -2615,9 +2873,10 @@ def main() -> int:
     distill_phase(dev)
     mesh_launches = mesh_phase(dev)
     tools_launches = tools_phase(dev)
+    distr_launches = distr_phase(dev)
     _, bench_launches = bench_phase()
     launches["env_step"] = bench_launches["env_step"]
-    for more in (mesh_launches, tools_launches):
+    for more in (mesh_launches, tools_launches, distr_launches):
         for k in launches:
             launches[k] += more.get(k, 0)
     sanity_phase(dev)

@@ -74,19 +74,20 @@ batch replays ``--batch-size`` fresh games, one position each.
 ``--loop GENS`` runs the closed RL loop (`dream_go_tpu/cli.py:298-323`)
 into ``--out-dir``: each generation plays ``--num-games`` policy games
 with the learner's current weights (``--ex-it`` re-searches ex-it
-positions at ``--num-rollout`` simulations), trains 256 steps on the
-balanced replay window and writes ``gen_NNNN.sgf``, ``ckpt_NNNN``,
-``dream_go.json`` and ``weights_NNNN.json``; ``--resume-loop`` continues
-from the directory's last checkpoint, and ``--warm-restart`` then restarts
-the learning-rate schedule at the warm-start rate.  ``--max-moves`` caps
-the loop's games too.  ``--mesh`` runs the loop on every rank of the
-process group (`dream_go_torch/parallel/`), one process a rank as torchrun
-starts them: the games split over the ranks, a data-parallel learner
-whose batch norm and gradients reduce over the ``data`` axis, and with
-``--mesh-model M`` the policy head's weight split over ``M`` ranks; rank 0
-writes the files, and each rank prints its kernel launches at the end.
-Outside torchrun ``--mesh`` is a world of one (JAX's ``--mesh`` spans the
-local devices of one process instead).  ``--profile DIR`` records the
+positions at ``--num-rollout`` simulations), trains ``--steps-per-gen``
+steps (256) on the balanced replay window and writes ``gen_NNNN.sgf``,
+``ckpt_NNNN``, ``dream_go.json`` and ``weights_NNNN.json``;
+``--resume-loop`` continues from the directory's last checkpoint, and
+``--warm-restart`` then restarts the learning-rate schedule at the
+warm-start rate.  ``--max-moves`` caps the loop's games too.  ``--mesh``
+runs the loop on every rank of the process group
+(`dream_go_torch/parallel/`), one process a rank as torchrun starts them:
+the games split over the ranks, a data-parallel learner whose batch norm
+and gradients reduce over the ``data`` axis, and with ``--mesh-model M``
+the policy head's weight split over ``M`` ranks; rank 0 writes the files,
+and each rank prints its kernel launches at the end.  Outside torchrun
+``--mesh`` is a world of one (JAX's ``--mesh`` spans the local devices of
+one process instead).  ``--profile DIR`` records the
 whole command with ``torch.profiler`` (CPU and, where there is one, CUDA
 activity) into ``DIR/trace.json``.
 """
@@ -154,6 +155,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metrics", metavar="FILE",
                         help="append training metrics JSONL to FILE")
     parser.add_argument("--steps", type=int, default=1000)
+    parser.add_argument("--steps-per-gen", type=int, default=256,
+                        help="--loop: train steps a generation")
     parser.add_argument("--batch-size", type=int, default=2048)
     parser.add_argument("--positions-per-game", type=int, default=8,
                         help="training examples drawn per replayed game")
@@ -437,6 +440,7 @@ def rl_loop(args):
                      seed=args.seed,
                      positions_per_game=args.positions_per_game,
                      bank_games=args.bank_games,
+                     train_steps_per_generation=args.steps_per_gen,
                      resume=args.resume_loop,
                      warm_restart=args.warm_restart,
                      use_mesh=args.mesh, mesh_model=args.mesh_model),

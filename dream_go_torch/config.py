@@ -45,6 +45,10 @@ class Schedule:
         knots.sort()
         return Schedule(tuple(knots))
 
+    @staticmethod
+    def constant(value: float) -> "Schedule":
+        return Schedule(((0.0, float(value)),))
+
     def at(self, visits: torch.Tensor) -> torch.Tensor:
         """Interpolated float32 value at each visit count: ``jnp.interp``'s
         ``fp[i-1] + (x - xp[i-1]) / dx * df``, with the multiply-add
