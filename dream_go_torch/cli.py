@@ -89,7 +89,9 @@ and each rank prints its kernel launches at the end.  Outside torchrun
 ``--mesh`` is a world of one (JAX's ``--mesh`` spans the local devices of
 one process instead).  ``--profile DIR`` records the
 whole command with ``torch.profiler`` (CPU and, where there is one, CUDA
-activity) into ``DIR/trace.json``.
+activity) into ``DIR/trace.json``, and the program's spans and counters
+(`utils/spans.py`, recorded while the profiler runs) into
+``DIR/spans.json``.
 """
 
 from __future__ import annotations
@@ -151,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "splits over")
     parser.add_argument("--profile", metavar="DIR",
                         help="write a torch.profiler trace of the command "
-                             "to DIR/trace.json")
+                             "to DIR/trace.json and its spans to "
+                             "DIR/spans.json")
     parser.add_argument("--metrics", metavar="FILE",
                         help="append training metrics JSONL to FILE")
     parser.add_argument("--steps", type=int, default=1000)
@@ -473,6 +476,8 @@ def main(argv=None):
         return _run(args, rest)
     from torch.profiler import ProfilerActivity, profile
 
+    from .utils import spans
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -480,6 +485,7 @@ def main(argv=None):
     with profile(activities=activities) as prof:
         rc = _run(args, rest)
     prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    spans.export(os.path.join(args.profile, "spans.json"))
     return rc
 
 

@@ -15,6 +15,7 @@ import torch
 
 from ..go.topology import SYM_POLICY, SYM_POLICY_INV
 from ..models.tower import Tower
+from ..utils import spans
 
 
 class Predictor:
@@ -43,6 +44,7 @@ class NetPredictor(Predictor):
     def __call__(self, feats):
         return self.planes(feats.permute(0, 3, 1, 2))
 
+    @spans.spanned("search.net")
     @torch.no_grad()
     def planes(self, x):
         logits, value, _ = self.model(x)

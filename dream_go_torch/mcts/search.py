@@ -41,6 +41,7 @@ from ..go.options import scoring_mask, standard_mask
 from ..ops import layout
 from ..ops.env_step import env_step_states
 from ..ops.leaf_step import leaf_step
+from ..utils import spans
 from ..utils.draws import draw
 from ..utils.lcb import normal_lcb
 from ..utils.numerics import fma as _fma
@@ -238,6 +239,7 @@ def _leaf_ladder_planes(leaf_packed, cfg: SearchConfig,
     planes[:, 31] = esc.to(planes.dtype).reshape(b, 19, 19)
 
 
+@spans.spanned("search.init_trees")
 def init_trees(states: GoState, predictor, gen: torch.Generator,
                cfg: SearchConfig, num_nodes: int,
                use_scoring: torch.Tensor | None) -> Tree:
@@ -295,6 +297,7 @@ def init_trees(states: GoState, predictor, gen: torch.Generator,
 # one simulation: select, then insert + backup
 
 
+@spans.spanned("search.select")
 def _select_flat(t: Tree, cfg: SearchConfig, batch: int, cap: int):
     """Batched root->leaf PUCT walk.
 
@@ -376,7 +379,11 @@ def _select_flat(t: Tree, cfg: SearchConfig, batch: int, cap: int):
     path_k[:, 1] = torch.where(adv0, kc, -1)
     done = ~adv0
     depth = 2
-    while depth < d and not bool(done.all()):
+    while depth < d:
+        with spans.span("search.select.wait"):
+            finished = bool(done.all())
+        if finished:
+            break
         child = slot_child[base + node].gather(
             1, torch.clamp(kc, min=0)[:, None].long())[:, 0]
         child = torch.where(kc >= 0, child, -1)
@@ -389,9 +396,16 @@ def _select_flat(t: Tree, cfg: SearchConfig, batch: int, cap: int):
         path_k[:, depth] = torch.where(adv, kc, -1)
         done = done | (child < 0)
         depth += 1
+    if spans.active():
+        # the root's level and each trip of the loop walk every lane
+        spans.count("search.select.iterations", depth - 2)
+        spans.count("search.select.lane_trips", (depth - 1) * batch)
+        spans.count_device("search.select.board_levels",
+                           (path_n[:, 1:] >= 0).sum())
     return node, action, kc, path_n, path_k, root_a
 
 
+@spans.spanned("search.backup")
 def _insert_backup_flat(t: Tree, node, action, k_exit, path_n, path_k,
                         root_a, leaf_rows, value, policy, use_scoring,
                         enabled, candidate, batch: int, cap: int) -> Tree:
@@ -522,40 +536,48 @@ def run_search(trees: Tree, predictor, cfg: SearchConfig, num_sims: int,
     batch, cap = trees.node_n.shape
     base = torch.arange(batch, device=trees.size.device) * cap
     for i in range(num_sims):
-        candidate = None
-        node, action, k_exit, path_n, path_k, root_a = _select_flat(
-            trees, cfg, batch, cap)
-        parent = _map(trees.states, lambda x: _flat(x)[base + node])
-        if cfg.fused:
-            if cfg.feature_set != "v1":
-                raise ValueError("the fused leaf kernel computes V1 planes")
-            leaf_packed, feats_k, cand = leaf_step(
-                *_widen_rows(parent), action, parent.komi)
-            leaf_states = _narrow_rows(leaf_packed, parent.komi)
-            planes = feats_k[:, :, :361].reshape(batch, 32, 19, 19)
-            if cfg.ladder_features:
-                _leaf_ladder_planes(leaf_packed, cfg, planes)
-            candidate = torch.cat(
-                [cand, torch.ones_like(cand[:, :1])], dim=1)
-            if use_scoring is not None:
-                candidate = torch.where(
-                    use_scoring[:, None],
-                    scoring_mask(unpack_rows(leaf_states)), candidate)
-            value, policy = predictor.planes(planes)
-        else:
-            if cfg.step_kernel:
-                onehot = (torch.arange(engine.PASS, device=action.device)
-                          [None, :] == action[:, None]).to(torch.float32)
-                leaf_states, _ = env_step_states(parent, onehot, 0)
+        with spans.span("search.simulation", request=start + i):
+            spans.count("search.simulations")
+            candidate = None
+            node, action, k_exit, path_n, path_k, root_a = _select_flat(
+                trees, cfg, batch, cap)
+            parent = _map(trees.states, lambda x: _flat(x)[base + node])
+            if cfg.fused:
+                if cfg.feature_set != "v1":
+                    raise ValueError(
+                        "the fused leaf kernel computes V1 planes")
+                with spans.span("search.leaf"):
+                    leaf_packed, feats_k, cand = leaf_step(
+                        *_widen_rows(parent), action, parent.komi)
+                    leaf_states = _narrow_rows(leaf_packed, parent.komi)
+                    planes = feats_k[:, :, :361].reshape(batch, 32, 19, 19)
+                    if cfg.ladder_features:
+                        _leaf_ladder_planes(leaf_packed, cfg, planes)
+                    candidate = torch.cat(
+                        [cand, torch.ones_like(cand[:, :1])], dim=1)
+                if use_scoring is not None:
+                    with spans.span("search.scoring_mask"):
+                        candidate = torch.where(
+                            use_scoring[:, None],
+                            scoring_mask(unpack_rows(leaf_states)), candidate)
+                value, policy = predictor.planes(planes)
             else:
-                leaf_states = engine.step(parent, action)
-            value, policy = predictor(_net_input(leaf_states, cfg))
-        en = None if budget is None else (start + i) < budget
-        _insert_backup_flat(
-            trees, node, action, k_exit, path_n, path_k, root_a,
-            leaf_states, value, policy,
-            use_scoring if candidate is None else None, en, candidate,
-            batch, cap)
+                with spans.span("search.leaf"):
+                    if cfg.step_kernel:
+                        onehot = (torch.arange(engine.PASS,
+                                               device=action.device)[None, :]
+                                  == action[:, None]).to(torch.float32)
+                        leaf_states, _ = env_step_states(parent, onehot, 0)
+                    else:
+                        leaf_states = engine.step(parent, action)
+                    feats = _net_input(leaf_states, cfg)
+                value, policy = predictor(feats)
+            en = None if budget is None else (start + i) < budget
+            _insert_backup_flat(
+                trees, node, action, k_exit, path_n, path_k, root_a,
+                leaf_states, value, policy,
+                use_scoring if candidate is None else None, en, candidate,
+                batch, cap)
     return trees
 
 
@@ -621,7 +643,9 @@ def run_search_adaptive(trees: Tree, predictor, cfg: SearchConfig,
     for i in range(chunks):
         remaining = cap - i * check_every
         done = search_done(trees, remaining) | (remaining <= 0)
-        if bool(done.all()):
+        with spans.span("search.adaptive.wait"):
+            finished = bool(done.all())
+        if finished:
             break
         trees = run_search(trees, predictor, cfg, check_every, use_scoring,
                            budget=budget, start=i * check_every)
@@ -646,6 +670,7 @@ def _descendant_mask(parent: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return desc
 
 
+@spans.spanned("search.reroot")
 def reroot(trees: Tree, action: torch.Tensor, gen: torch.Generator,
            cfg: SearchConfig):
     """Compact each game's subtree under root-child ``action`` to the

@@ -37,11 +37,13 @@ from ..go import benson as bn
 from ..go import engine
 from ..mcts import search as S
 from ..mcts.predictor import symmetrize
+from ..utils import spans
 from ..utils.draws import batch_rows
 from .policy import PolicyPlayer, _build_move_fn, _final_territory, random_komi
 from .records import Played, game_result_sgf
 
 
+@spans.spanned("selfplay.finish_move")
 def _finish_move(search_cfg: SearchConfig, temperature_moves: int,
                  states: engine.GoState, trees: S.Tree,
                  gen: torch.Generator):
@@ -287,6 +289,7 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
     move_i = 0
     max_total = cfg.max_moves * (num_games + batch)
 
+    @spans.spanned("selfplay.refill")
     def flush_and_refill():
         nonlocal states, records, rec_base
         done = (states.done | (states.move_count >= cfg.max_moves)) \
@@ -321,31 +324,37 @@ def search_self_play_continuous(predictor, cfg: SelfPlayConfig,
     t_deadline = None
     while len(games) < num_games and move_i < max_total and (
             t_deadline is None or time.monotonic() < t_deadline):
-        active = ~states.done.cpu().numpy()
-        to_move = states.to_move.cpu().numpy()
-        budget = _budgets(cfg, winrate, to_move)
-        dbudget = torch.as_tensor(budget, device=dev)
-        if trees is None:
-            states, trees, move, value, targets = first_fn(
-                states, gen, dbudget)
-        else:
-            states, trees, move, value, targets = reuse_fn(
-                states, trees, prev_move, gen, dbudget,
-                torch.as_tensor(fresh_mask, device=dev))
-        fresh_mask[:] = False
-        prev_move = move
-        value = value.cpu().numpy()
-        if stats is not None:
-            stats.setdefault("move_events", []).append(
-                (time.monotonic(), int(active.sum()),
-                 int(budget[active].sum()) if active.any() else 0))
-        _update_winrate(cfg, winrate, to_move, active, value)
-        records.append((active, move.cpu().numpy(), value, to_move,
-                        targets.cpu().numpy().astype(np.float16), budget))
-        move_i += 1
-        if move_i == 1 and deadline_s is not None:
-            t_deadline = time.monotonic() + deadline_s
-        if move_i % refill_every == 0:
-            flush_and_refill()
+        with spans.span("selfplay.move", request=move_i):
+            spans.count("selfplay.moves")
+            with spans.span("selfplay.move.wait"):
+                active = ~states.done.cpu().numpy()
+                to_move = states.to_move.cpu().numpy()
+            budget = _budgets(cfg, winrate, to_move)
+            dbudget = torch.as_tensor(budget, device=dev)
+            if trees is None:
+                states, trees, move, value, targets = first_fn(
+                    states, gen, dbudget)
+            else:
+                states, trees, move, value, targets = reuse_fn(
+                    states, trees, prev_move, gen, dbudget,
+                    torch.as_tensor(fresh_mask, device=dev))
+            fresh_mask[:] = False
+            prev_move = move
+            with spans.span("selfplay.move.wait"):
+                value = value.cpu().numpy()
+                move_np = move.cpu().numpy()
+                targets_np = targets.cpu().numpy().astype(np.float16)
+            if stats is not None:
+                stats.setdefault("move_events", []).append(
+                    (time.monotonic(), int(active.sum()),
+                     int(budget[active].sum()) if active.any() else 0))
+            _update_winrate(cfg, winrate, to_move, active, value)
+            records.append((active, move_np, value, to_move, targets_np,
+                            budget))
+            move_i += 1
+            if move_i == 1 and deadline_s is not None:
+                t_deadline = time.monotonic() + deadline_s
+            if move_i % refill_every == 0:
+                flush_and_refill()
 
     return _gather(games[:num_games], mesh)

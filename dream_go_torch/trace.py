@@ -10,67 +10,46 @@ Runs the CLI's continuous self-play (by default at the full 128 x 9
 width, seeded random weights) for a few batch moves and prints two
 breakdowns:
 
-1. host wall time per search stage (root evaluation, Benson scorability,
-   select, leaf_step, ladder planes, the feature kernel, ScoringSearch
-   masks, network, backup, re-rooting, move choice), each stage timed
-   between two ``torch.cuda.synchronize()`` calls.  Stages nest where one
-   calls another: the root evaluation includes its own network call, masks
-   and ladder planes, and "network", "ladder planes" and "scoring mask"
-   count both the roots' and the leaves' calls.  Also the number of tree
-   levels each select walks (the deepest game of the batch);
+1. the program's span table (`utils/spans.py`), recorded under
+   ``spans.recording()``: each span's calls, total and self seconds
+   (self: less its direct children), by self seconds, and the counters.
+   The spans take the host's clock without synchronising, so a stage's
+   time is what the host spent in it: launching its work, or waiting for
+   the device in the ``*.wait`` spans (``search.select.wait``,
+   ``selfplay.move.wait``).  ``search.select.board_levels`` over
+   ``search.select.lane_trips`` is the share of the lockstep walk's
+   board-levels that advanced a board;
 2. a ``torch.profiler`` window over ``--profile-sims`` simulations: device
-   time by kernel, and the device's busy and idle share of the window.
+   time by kernel, the device's busy and idle share of the window, and
+   the window's span table.
 
 With ``--train`` it profiles ``--train-steps`` steps of the trainer
 instead (`train/train_loop.py::Trainer.fit`, 128 x 9 bf16, batches of
 ``--batch-size`` from a bank of ``--bank-games`` games of ``--train-data``,
 8 positions each, after three steps of warm-up that build the bank): the
-milliseconds a step, device time by kernel and the idle share.
+milliseconds a step, device time by kernel, the idle share and the
+window's span table (``train.*``, ``pipeline.batch``).
 
-Timing with synchronisation slows the run down; the stage shares are what
-it is for, not the absolute rate.  The card's name and power limit are
-printed beside the numbers.  ``--device cpu`` only rehearses the script.
+The card's name and power limit are printed beside the numbers.
+``--device cpu`` only rehearses the script.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import functools
 import json
 import subprocess
 import time
 
 import torch
 
+from .utils import spans
+
 
 def _sync():
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-def _timed(table, name, fn):
-    """``fn`` with its calls timed under ``name``; a call made inside
-    another call of the same stage is not counted twice."""
-    active = [0]
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        if active[0]:
-            return fn(*args, **kwargs)
-        active[0] += 1
-        _sync()
-        t0 = time.perf_counter()
-        try:
-            out = fn(*args, **kwargs)
-            _sync()
-        finally:
-            active[0] -= 1
-        table[name][0] += time.perf_counter() - t0
-        table[name][1] += 1
-        return out
-
-    return wrapper
 
 
 def _cli_args(args, extra=()):
@@ -96,49 +75,25 @@ def _search_config(args, cli_args):
     return dataclasses.replace(cfg, feature_kernel=args.feature_kernel)
 
 
-def stage_breakdown(args) -> dict:
-    """Self-play with every search stage wrapped in a synchronised timer."""
+def _table(snap: dict) -> dict:
+    """A snapshot's spans by self seconds, and its counters."""
+    return {"spans": dict(sorted(snap["spans"].items(),
+                                 key=lambda kv: -kv[1]["self_s"])),
+            "counters": dict(sorted(snap["counters"].items()))}
+
+
+def span_table(args) -> dict:
+    """Self-play under ``spans.recording()``: the wall time, the games
+    completed and the span table."""
     from . import cli
-    from .go import benson, ladder
-    from .mcts import search as S
-    from .ops import libs_after
+    from .config import SelfPlayConfig
     from .selfplay import search_play as SP
 
-    table = collections.defaultdict(lambda: [0.0, 0])
-    patches = [
-        (S, "init_trees", "root eval (init_trees)"),
-        (S, "_select_flat", "select"),
-        (S, "leaf_step", "leaf_step (kernel)"),
-        (ladder, "ladder_planes_batch", "ladder planes (leaves + roots)"),
-        (libs_after, "board_features_raw", "feature kernel"),
-        (S, "scoring_mask", "scoring mask (leaves + roots)"),
-        (S, "_insert_backup_flat", "insert + backup"),
-        (S, "reroot", "reroot"),
-        (SP, "_finish_move", "best move + board step"),
-    ]
-    saved = []
-    for mod, attr, name in patches:
-        saved.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, _timed(table, name, getattr(mod, attr)))
-    depths = []
-    timed_select = S._select_flat
-
-    def select_with_depth(*a, **kw):
-        out = timed_select(*a, **kw)
-        depths.append(int((out[3] >= 0).sum(1).max()))  # deepest game
-        return out
-
-    S._select_flat = select_with_depth
-    SP.bn = _Proxy(benson, is_scorable=_timed(
-        table, "is_scorable (roots)", benson.is_scorable))
-    try:
-        cli_args = _cli_args(args, ("--max-moves", str(args.moves),
-                                    "--seed", "0"))
-        predictor = cli.load_predictor(cli_args, args.device)
-        predictor.planes = _timed(table, "network", predictor.planes)
-        cfg = _search_config(args, cli_args)
-        from .config import SelfPlayConfig
-
+    cli_args = _cli_args(args, ("--max-moves", str(args.moves),
+                                "--seed", "0"))
+    predictor = cli.load_predictor(cli_args, args.device)
+    cfg = _search_config(args, cli_args)
+    with spans.recording():
         _sync()
         t0 = time.perf_counter()
         games = SP.search_self_play_continuous(
@@ -149,26 +104,7 @@ def stage_breakdown(args) -> dict:
             device=args.device)
         _sync()
         wall = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-        SP.bn = benson
-    return {"wall_s": wall, "games": len(games),
-            "select_levels": {"mean": sum(depths) / max(len(depths), 1),
-                              "max": max(depths, default=0)},
-            "stages": {k: {"s": v[0], "calls": v[1]}
-                       for k, v in sorted(table.items(),
-                                          key=lambda kv: -kv[1][0])}}
-
-
-class _Proxy:
-    """A module stand-in with some attributes replaced."""
-
-    def __init__(self, mod, **over):
-        self._mod, self._over = mod, over
-
-    def __getattr__(self, name):
-        return self._over.get(name, getattr(self._mod, name))
+    return {"wall_s": wall, "games": len(games), **_table(spans.snapshot())}
 
 
 def profile_window(args) -> dict:
@@ -199,7 +135,8 @@ def profile_window(args) -> dict:
                              use_scoring)
         _sync()
     return dict(sims=args.profile_sims,
-                **_device_time(prof, time.perf_counter() - t0))
+                **_device_time(prof, time.perf_counter() - t0),
+                **_table(spans.snapshot()))
 
 
 def _device_time(prof, wall: float) -> dict:
@@ -244,7 +181,7 @@ def train_window(args) -> dict:
     wall = time.perf_counter() - t0
     return dict(steps=args.train_steps, batch=args.batch_size,
                 ms_per_step=wall * 1e3 / args.train_steps,
-                **_device_time(prof, wall))
+                **_device_time(prof, wall), **_table(spans.snapshot()))
 
 
 def main(argv=None):
@@ -285,7 +222,7 @@ def main(argv=None):
     if args.train:
         print(json.dumps({"train": train_window(args)}), flush=True)
         return
-    print(json.dumps({"stage_breakdown": stage_breakdown(args)}), flush=True)
+    print(json.dumps({"span_table": span_table(args)}), flush=True)
     print(json.dumps({"profile": profile_window(args)}), flush=True)
 
 

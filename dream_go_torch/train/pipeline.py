@@ -45,7 +45,7 @@ from ..go.engine import GoState
 from ..go.topology import SYM
 from ..selfplay.replay import (lz_features, states_and_stone_history_at,
                                states_at, states_at_multi)
-from ..utils import sgf
+from ..utils import sgf, spans
 
 #: boards a feature extraction takes at a time: the batch at which the
 #: card's tests and smoke hold the kernels, and a bound on the memory of
@@ -204,43 +204,49 @@ class ExampleSource:
             return
         g = self.batch_size // self.positions_per_game
         for _ in range(num_batches):
-            feats, labels = _device_batch(
-                *self._on_device(*self._sample_arrays(g)), self.gen,
-                self.history_len, self.augment, self.ladder_features,
-                self.feature_set, self.lz_history)
-            if rows is not None:
-                feats, labels = feats[rows], {k: v[rows]
-                                              for k, v in labels.items()}
+            with spans.span("pipeline.batch"):
+                feats, labels = _device_batch(
+                    *self._on_device(*self._sample_arrays(g)), self.gen,
+                    self.history_len, self.augment, self.ladder_features,
+                    self.feature_set, self.lz_history)
+                if rows is not None:
+                    feats, labels = feats[rows], {k: v[rows]
+                                                  for k, v in labels.items()}
+                spans.count("pipeline.examples", feats.shape[0])
             yield feats, labels
 
     def build_bank(self):
         """The example bank, ``(features, labels)``, built at the first
         banked batch."""
         if self.bank is None:
-            self.bank = _device_batch(
-                *self._on_device(*self._sample_arrays(self.bank_games)),
-                self.gen, self.history_len, False, self.ladder_features,
-                self.feature_set)
+            with spans.span("pipeline.bank"):
+                self.bank = _device_batch(
+                    *self._on_device(*self._sample_arrays(self.bank_games)),
+                    self.gen, self.history_len, False, self.ladder_features,
+                    self.feature_set)
         return self.bank
 
     def _banked_batches(self, num_batches: int, rows: slice | None):
         for _ in range(num_batches):
             feats, labels = self.build_bank()
-            idx = torch.as_tensor(
-                self.rng.integers(0, feats.shape[0], self.batch_size),
-                device=self.device)
-            sym = u = None
-            if rows is not None:
-                if self.augment:  # the whole batch's draws, in _augment's
-                    #               order
-                    sym = torch.randint(0, 8, (self.batch_size,),
-                                        generator=self.gen,
-                                        device=self.device)[rows]
-                    u = torch.rand(self.batch_size, generator=self.gen,
-                                   device=self.device)[rows]
-                idx = idx[rows]
-            yield _bank_batch(feats, labels, idx, self.gen, self.augment,
-                              self.feature_set, sym, u)
+            with spans.span("pipeline.batch"):
+                idx = torch.as_tensor(
+                    self.rng.integers(0, feats.shape[0], self.batch_size),
+                    device=self.device)
+                sym = u = None
+                if rows is not None:
+                    if self.augment:  # the whole batch's draws, in
+                        #               _augment's order
+                        sym = torch.randint(0, 8, (self.batch_size,),
+                                            generator=self.gen,
+                                            device=self.device)[rows]
+                        u = torch.rand(self.batch_size, generator=self.gen,
+                                       device=self.device)[rows]
+                    idx = idx[rows]
+                batch = _bank_batch(feats, labels, idx, self.gen,
+                                    self.augment, self.feature_set, sym, u)
+                spans.count("pipeline.examples", idx.shape[0])
+            yield batch
 
     def _on_device(self, moves, targets, komi, labels):
         t = lambda a: torch.as_tensor(a, device=self.device)

@@ -42,6 +42,7 @@ from torch import nn
 from ..config import ModelConfig, TrainConfig
 from ..models import params as MP
 from ..models import tower as T
+from ..utils import spans
 from . import losses
 from .lr_schedule import LearningRateScheduler
 
@@ -138,19 +139,22 @@ def train_step(model: T.TrainTower, optimizer: torch.optim.Optimizer,
     model.train()
     for group in optimizer.param_groups:
         group["lr"] = learning_rate
-    with _autocast(model.cfg, feats.device):
-        out = model(feats.permute(0, 3, 1, 2))
-    loss, metrics = _metrics(out, labels, train_cfg, mesh)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if mesh is not None:
-        sync_gradients(model, mesh)
-    with torch.no_grad():
-        kernels = decay_params(model)
-        torch._foreach_add_(kernels, kernels, alpha=-train_cfg.l2_coef)
-    optimizer.step()
-    if train_cfg.max_norm:
-        normalize_conv_kernels(model)
+    with spans.span("train.forward"):
+        with _autocast(model.cfg, feats.device):
+            out = model(feats.permute(0, 3, 1, 2))
+        loss, metrics = _metrics(out, labels, train_cfg, mesh)
+    with spans.span("train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if mesh is not None:
+            sync_gradients(model, mesh)
+    with spans.span("train.update"):
+        with torch.no_grad():
+            kernels = decay_params(model)
+            torch._foreach_add_(kernels, kernels, alpha=-train_cfg.l2_coef)
+        optimizer.step()
+        if train_cfg.max_norm:
+            normalize_conv_kernels(model)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -251,6 +255,7 @@ class Trainer:
         return {k: self._whole(k, v)
                 for k, v in self.model.state_dict().items()}
 
+    @spans.spanned("train.ema")
     @torch.no_grad()
     def _ema_update(self):
         names = list(self.ema)
@@ -271,29 +276,33 @@ class Trainer:
         try:
             for i, (feats, labels) in enumerate(self._batches(source,
                                                               num_steps)):
-                lr = self.scheduler.learning_rate
-                metrics = train_step(self.model, self.optimizer,
-                                     self.train_cfg, feats, labels, lr,
-                                     self.mesh)
-                self.step += 1
-                if self.ema is not None:
-                    self._ema_update()
-                # one copy to the host (a synchronisation) for them all
-                last_metrics = dict(zip(metrics, torch.stack(
-                    list(metrics.values())).tolist()))
-                loss = last_metrics["loss"]
-                self.scheduler.update(loss)
-                last_metrics["learning_rate"] = lr
-                last_metrics["lr_slope"] = self.scheduler.slope
-                last_metrics["lr_p_decreasing"] = self.scheduler.p_decreasing
-                if writer:
-                    writer.write(self.step, last_metrics)
-                if log_every and (i + 1) % log_every == 0:
-                    log_fn(f"step {self.step} loss {loss:.4f} "
-                           f"lr {self.scheduler.learning_rate:.2e} "
-                           f"top1 {last_metrics['policy_top1']:.3f}")
-                if self.scheduler.should_stop:
-                    break
+                with spans.span("train.step", request=self.step):
+                    spans.count("train.steps")
+                    lr = self.scheduler.learning_rate
+                    metrics = train_step(self.model, self.optimizer,
+                                         self.train_cfg, feats, labels, lr,
+                                         self.mesh)
+                    self.step += 1
+                    if self.ema is not None:
+                        self._ema_update()
+                    # one copy to the host (a synchronisation) for them all
+                    with spans.span("train.wait"):
+                        last_metrics = dict(zip(metrics, torch.stack(
+                            list(metrics.values())).tolist()))
+                    loss = last_metrics["loss"]
+                    self.scheduler.update(loss)
+                    last_metrics["learning_rate"] = lr
+                    last_metrics["lr_slope"] = self.scheduler.slope
+                    last_metrics["lr_p_decreasing"] = \
+                        self.scheduler.p_decreasing
+                    if writer:
+                        writer.write(self.step, last_metrics)
+                    if log_every and (i + 1) % log_every == 0:
+                        log_fn(f"step {self.step} loss {loss:.4f} "
+                               f"lr {self.scheduler.learning_rate:.2e} "
+                               f"top1 {last_metrics['policy_top1']:.3f}")
+                    if self.scheduler.should_stop:
+                        break
         finally:
             if writer:
                 writer.close()
