@@ -200,6 +200,11 @@ OFF_MOVES = 8
 #: the unfused feature-kernel path, cut in depth
 UNF_GAMES, UNF_ROLLOUTS, UNF_MOVES = 64, 16, 8
 PARITY_BATCHES = (1, 7, 256, 1024)
+#: the select walk's trees: (boards, slots), grown WALK_SIMS simulations
+#: (the benchmark's self-play cell grows 256 before its window) at the
+#: main path's capacity (1600 rollouts + 8)
+WALK_TREES = ((256, 32), (1024, 32), (1024, 2))
+WALK_SIMS, WALK_CAPACITY = 256, 1608
 #: the env-step kernel also at the bench's batch
 ENV_BATCHES = PARITY_BATCHES + (4096,)
 ENV_CHAIN_BATCH, ENV_CHAIN_STEPS = 256, 200
@@ -411,7 +416,7 @@ def build_phase():
     t0 = time.monotonic()
     jobs = [(p.stem, False) for p in sorted(build.CSRC.glob("*.cu"))]
     jobs += [("leaf_step", True), ("ladder_planes", True),
-             ("libs_after", True), ("env_step", True)]
+             ("libs_after", True), ("env_step", True), ("select_walk", True)]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
     for name, checked in sorted(jobs):
@@ -860,13 +865,73 @@ def env_step_cases_parity(dev, states, rows, gen) -> int:
     return worst
 
 
+def walk_trees(dev, batch: int, slots: int = 32):
+    """Trees the port's search grows on the card, ``WALK_SIMS``
+    simulations at the main path's capacity, for the select walk's parity
+    and timing: ``(trees, cfg)`` (~10 GB at B = 1024)."""
+    from dream_go_torch.mcts import walk_cases
+
+    return walk_cases.grown_trees(dev, batch, WALK_SIMS, slots=slots,
+                                  seed=batch + slots, capacity=WALK_CAPACITY)
+
+
+def walk_compare(what, got, want) -> float:
+    """Raise unless the select walk's six outputs equal the plain
+    version's; returns the max abs error (0)."""
+    names = ("node", "action", "k_exit", "path_n", "path_k", "root_a")
+    for name, g, w in zip(names, got, want):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad = (g != w).nonzero()[:10].tolist()
+            raise RuntimeError(f"select_walk differs ({what}, {name}): {bad}")
+    return 0.0
+
+
+def select_walk_parity(dev) -> float:
+    """The select walk's kernel against its plain version: trees grown by
+    the port's search at B = 256 and 1024 (K = 32, and 2 at B = 1024), the
+    same trees with their statistics redrawn (three roots without a
+    candidate), a line past the depth bound; then the checked build on
+    the B = 1024 trees."""
+    from dream_go_torch.mcts import walk_cases
+    from dream_go_torch.ops import select_walk as SW
+
+    t0 = time.monotonic()
+    levels = []
+
+    def compare(what, t, cfg):
+        b, c = t.node_n.shape
+        args = (t, cfg.uct_exp, cfg.fpu_reduce, b, c)
+        want = SW.select_walk_plain(*args)
+        walk_compare(what, SW.select_walk(*args), want)
+        if b == 1024:
+            got = SW.select_walk_checked(*args)
+            torch.cuda.synchronize()
+            walk_compare(f"{what}, checked", got, want)
+        lv = (want[3][:, 1:] >= 0).sum(1)
+        levels.append(f"{what}: levels {float(lv.float().mean()):.2f} mean, "
+                      f"{int(lv.max())} max")
+        return want
+
+    for b, slots in WALK_TREES:   # one batch of trees on the card at a time
+        t, cfg = walk_trees(dev, b, slots)
+        compare(f"B={b} K={slots}", t, cfg)
+        compare(f"B={b} K={slots} redrawn", walk_cases.perturbed(t, b, 3), cfg)
+        del t
+    want = compare("line past the depth bound", *walk_cases.line_trees(dev))
+    check(bool((want[2] >= 0).all()), "the line did not reach the bound")
+    phase("parity", t0, "select_walk bit-exact vs plain on " + "; ".join(
+        levels) + "; the -DDG_CHECK build equal at B=1024, no trap")
+    return 0.0
+
+
 def parity_phase(dev):
     states, actions = random_boards(max(PARITY_BATCHES), dev, seed=1)
     env_states = env_boards(dev)
     errs = {"leaf_step": leaf_step_parity(dev, states, actions),
             "ladder_planes": ladder_parity(dev, states),
             "board_features_raw": libs_after_parity(dev, states),
-            "env_step": env_step_parity(dev, env_states)}
+            "env_step": env_step_parity(dev, env_states),
+            "select_walk": select_walk_parity(dev)}
     return errs, states, actions, env_states
 
 
@@ -1045,10 +1110,11 @@ def check_sgf(line: str, rollouts: int = ROLLOUTS) -> int:
 
 def kernel_modules():
     from dream_go_torch.ops import env_step, ladder_kernel, leaf_step, \
-        libs_after
+        libs_after, select_walk
 
     return {"leaf_step": leaf_step, "ladder_planes": ladder_kernel,
-            "board_features_raw": libs_after, "env_step": env_step}
+            "board_features_raw": libs_after, "env_step": env_step,
+            "select_walk": select_walk}
 
 
 def counted(run):
@@ -1103,13 +1169,13 @@ def selfplay_phase(dev):
     off = cli_args(OFF_MOVES)
     launches_off, _ = drive(
         "selfplay (planes off)", lambda st: cli.self_play(off, stats=st),
-        GAMES, ROLLOUTS, ["leaf_step"])
+        GAMES, ROLLOUTS, ["leaf_step", "select_walk"])
     check(launches_off["ladder_planes"] == 0, "planes off read ladders")
 
     on = cli_args(MAX_MOVES, "--ladder-features")
     launches_on, moves = drive(
         "selfplay A (planes on)", lambda st: cli.self_play(on, stats=st),
-        GAMES, ROLLOUTS, ["leaf_step", "ladder_planes"])
+        GAMES, ROLLOUTS, ["leaf_step", "ladder_planes", "select_walk"])
     # one ladder launch per lockstep simulation (= leaf_step launch) and
     # one per root evaluation (= batch move)
     check(launches_on["ladder_planes"] >= launches_on["leaf_step"] + moves,
@@ -1127,7 +1193,8 @@ def selfplay_phase(dev):
         lambda st: search_self_play_continuous(
             predictor, cfg, scfg, seed=0, batch=UNF_GAMES, stats=st,
             device=dev),
-        UNF_GAMES, UNF_ROLLOUTS, ["board_features_raw", "ladder_planes"])
+        UNF_GAMES, UNF_ROLLOUTS,
+        ["board_features_raw", "ladder_planes", "select_walk"])
     check(launches_unf["leaf_step"] == 0, "the unfused path ran leaf_step")
 
     step = cli_args(STEP_MOVES, "--no-fused")
@@ -1141,12 +1208,17 @@ def selfplay_phase(dev):
         lambda st: search_self_play_continuous(
             predictor, cfg, scfg, seed=0, batch=STEP_GAMES, stats=st,
             device=dev),
-        STEP_GAMES, STEP_ROLLOUTS, ["env_step"])
+        STEP_GAMES, STEP_ROLLOUTS, ["env_step", "select_walk"])
     check(launches_step["leaf_step"] == 0,
           "the step-kernel path ran leaf_step")
+    # every search on the card walks its trees with the kernel, one launch
+    # a simulation
+    check(launches_on["select_walk"] >= launches_on["leaf_step"],
+          "selfplay A: fewer select-walk launches than simulations")
     return {"leaf_step": launches_on["leaf_step"],
             "ladder_planes": launches_on["ladder_planes"],
-            "board_features_raw": launches_unf["board_features_raw"]}
+            "board_features_raw": launches_unf["board_features_raw"],
+            "select_walk": launches_on["select_walk"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2093,7 +2165,8 @@ def mesh_phase(dev):
             launches[k] = launches.get(k, 0) + v
     check(len(re.findall(r"kernel launches", text)) == MESH_RANKS,
           "a rank printed no launch counts")
-    for k in ("leaf_step", "ladder_planes", "board_features_raw"):
+    for k in ("leaf_step", "ladder_planes", "board_features_raw",
+              "select_walk"):
         check(launches.get(k, 0) > 0, f"the mesh loop never launched {k}: "
               f"{launches}")
     with open(os.path.join(out, "gen_0000.sgf")) as fh:
@@ -2773,6 +2846,46 @@ def env_step_timing(env_states):
     return res[max(ENV_BATCHES)]
 
 
+def select_walk_bound(t, path_n) -> tuple[float, str]:
+    """Least time for one select-walk launch on these trees: the bytes the
+    walks read (the root's full-width arrays, prior row, bitset and
+    statistics; at each non-root level the node's statistics, its K slots,
+    prior row and bitset) and write, over HBM rate."""
+    from dream_go_torch.ops import select_walk as SW
+
+    b, _, k = t.slot_action.shape
+    root = SW.A * (4 + 4 + 4 + 2) + SW.NCW * 4 + 8
+    level = 8 + k * 16 + SW.A * 2 + SW.NCW * 4
+    levels = int((path_n[:, 1:] >= 0).sum())
+    nbytes = b * root + levels * level + b * (16 + 8 * path_n.shape[1])
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def select_walk_timing(dev):
+    """The select walk on the grown trees at B = 256 and 1024 (the main
+    path's capacity): kernel (graph replays and eager calls), plain walk
+    and bound; returns the B = 1024 row and logs both."""
+    from dream_go_torch.ops import select_walk as SW
+
+    res = {}
+    for b in (TIMING_BATCH, LEAF_BENCH_BATCH):
+        t, cfg = walk_trees(dev, b)
+        args = (t, cfg.uct_exp, cfg.fpu_reduce, b, t.node_n.shape[1])
+        walk = lambda: SW.select_walk(*args)
+        path_n = walk()[3]
+        lv = (path_n[:, 1:] >= 0).sum(1)
+        v = res[b] = dict(
+            ms=graph_ms(walk), eager_ms=events_ms(walk, 50),
+            plain_ms=events_ms(lambda: SW.select_walk_plain(*args), 3),
+            bound=select_walk_bound(t, path_n))
+        log(f"  select_walk B={b} (levels {float(lv.float().mean()):.2f} "
+            f"mean, {int(lv.max())} max): kernel {v['ms'] * 1e3:.2f} us "
+            f"(eager call {v['eager_ms'] * 1e3:.2f} us), bound "
+            f"{v['bound'][0] * 1e3:.2f} us ({v['bound'][1]}), plain "
+            f"{v['plain_ms'] * 1e3:.1f} us")
+    return res[LEAF_BENCH_BATCH]
+
+
 def events_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -2822,14 +2935,16 @@ def timing_phase(states, actions, env_states):
 
     out["board_features_raw"] = libs_after_timing(states, sel)
     out["env_step"] = env_step_timing(env_states)
+    out["select_walk"] = select_walk_timing(states.stones.device)
     log(f"  ladder_planes serial chain: {rung_ms * 1e3:.3f} us a rung "
         f"(staircase, {stair_chain} rungs, B=1); at B={b} the longest chase "
         f"is {longest} rungs ({longest * rung_ms * 1e3:.2f} us) and the "
         f"longest warp chain {chain} rungs ({chain * rung_ms * 1e3:.2f} us) "
         f"of {rungs} rungs in all")
     phase("timing", t0, f"B={b} (env_step B={max(ENV_BATCHES)}; leaf_step "
-          f"B={LEAF_BENCH_BATCH} and board_features_raw "
-          f"B={FEATURE_BENCH_BATCH} above): " + "; ".join(
+          f"B={LEAF_BENCH_BATCH}, board_features_raw "
+          f"B={FEATURE_BENCH_BATCH} and select_walk B={LEAF_BENCH_BATCH} "
+          f"above): " + "; ".join(
         f"{k} kernel {v['ms'] * 1e3:.2f} us (eager call "
         f"{v['eager_ms'] * 1e3:.2f} us), bound {v['bound'][0] * 1e3:.2f} us "
         f"({v['bound'][1]}), plain {v['plain_ms'] * 1e3:.1f} us"
@@ -2846,6 +2961,9 @@ SOURCES = {
                            "dream_go_tpu/ops/libs_after.py:176"),
     "env_step": ("dream_go_torch/csrc/env_step.cu",
                  "dream_go_tpu/ops/env_step.py:355"),
+    # no Pallas kernel: the JAX package's walk is a jax.lax.while_loop
+    "select_walk": ("dream_go_torch/csrc/select_walk.cu",
+                    "dream_go_tpu/mcts/search.py:430"),
 }
 
 

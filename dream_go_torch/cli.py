@@ -451,13 +451,15 @@ def rl_loop(args):
     if args.mesh:
         import json
 
-        from .ops import env_step, ladder_kernel, leaf_step, libs_after
+        from .ops import (env_step, ladder_kernel, leaf_step, libs_after,
+                          select_walk)
         from .parallel import distributed as D
 
         launches = {"leaf_step": leaf_step.launches,
                     "ladder_planes": ladder_kernel.launches,
                     "board_features_raw": libs_after.launches,
-                    "env_step": env_step.launches}
+                    "env_step": env_step.launches,
+                    "select_walk": select_walk.launches}
         # one write, so that the ranks' lines do not interleave
         sys.stderr.write(f"rank {D.rank()} of {D.world_size()}: kernel "
                          f"launches {json.dumps(launches)}\n")

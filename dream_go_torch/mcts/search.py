@@ -24,8 +24,10 @@ rounding so the tree statistics match bit for bit.
 
 Trees are updated in place: a search owns its trees, and the flat
 ``[B*C, ...]`` views used by select and backup are views of the same
-storage.  The select walk is a Python loop over depth with a device-side
-``done`` mask and one host sync per level.
+storage.  The select walk (`ops/select_walk.py`) is, on the CPU, a
+Python loop over depth with a device-side ``done`` mask and one host sync
+per level, and on a CUDA device one kernel launch in which each board's
+warp walks its own tree.
 """
 
 from __future__ import annotations
@@ -41,17 +43,15 @@ from ..go.options import scoring_mask, standard_mask
 from ..ops import layout
 from ..ops.env_step import env_step_states
 from ..ops.leaf_step import leaf_step
+from ..ops.select_walk import (A, MAX_BACKUP_DEPTH, NCW, NEG_INF, _flat,
+                               pack_cand, select_walk, unpack_cand)
 from ..utils import spans
 from ..utils.draws import draw
 from ..utils.lcb import normal_lcb
 from ..utils.numerics import fma as _fma
 from .choose import choose
 
-A = 362  # actions: 361 points + pass
-NCW = 12  # candidate bitset words (12 x 32 >= 362)
 MIN_LCB_VISITS = 80  # tree.rs:34
-MAX_BACKUP_DEPTH = 128
-NEG_INF = float("-inf")
 
 
 # ---------------------------------------------------------------------------
@@ -136,22 +136,6 @@ def _states_to_move(states) -> torch.Tensor:
     return states.to_move
 
 
-def pack_cand(c: torch.Tensor) -> torch.Tensor:
-    """bool[..., A] -> int32[..., NCW] bitset (uint32 bit patterns)."""
-    pad = torch.zeros(c.shape[:-1] + (NCW * 32 - A,), dtype=torch.bool,
-                      device=c.device)
-    cp = torch.cat([c, pad], -1).reshape(c.shape[:-1] + (NCW, 32))
-    shifts = torch.arange(32, dtype=torch.int64, device=c.device)
-    return (cp.to(torch.int64) << shifts).sum(-1).to(torch.int32)
-
-
-def unpack_cand(w: torch.Tensor) -> torch.Tensor:
-    """int32[..., NCW] bitset -> bool[..., A]."""
-    shifts = torch.arange(32, dtype=torch.int32, device=w.device)
-    bits = (w[..., :, None] >> shifts) & 1
-    return bits.reshape(w.shape[:-1] + (NCW * 32,))[..., :A].bool()
-
-
 # ---------------------------------------------------------------------------
 # the trees
 
@@ -186,11 +170,6 @@ class Tree:
 
 
 _GAME_FIELDS = ("root_child", "root_edge_n", "root_edge_w", "size")
-
-
-def _flat(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, ...] -> [B*C, ...] view of the same storage."""
-    return x.view((-1,) + tuple(x.shape[2:]))
 
 
 def _sane_value(v):
@@ -299,7 +278,8 @@ def init_trees(states: GoState, predictor, gen: torch.Generator,
 
 @spans.spanned("search.select")
 def _select_flat(t: Tree, cfg: SearchConfig, batch: int, cap: int):
-    """Batched root->leaf PUCT walk.
+    """Batched root->leaf PUCT walk (`ops/select_walk.py`: the plain loop
+    on the CPU, one kernel launch on a CUDA device).
 
     Returns ``(node, action, k_exit, path_n, path_k, root_a)``: the leaf's
     parent node, the chosen action, the parent's slot index when the walk
@@ -307,102 +287,11 @@ def _select_flat(t: Tree, cfg: SearchConfig, batch: int, cap: int):
     the visited chain ``path_n[B, D]`` (-1-padded, ``path_n[:, 0] == 0``),
     the slot chosen at each chain node ``path_k``, and the root action.
     """
-    dev = t.size.device
-    base = torch.arange(batch, device=dev) * cap
-    node_n, value0 = _flat(t.node_n), _flat(t.value0)
-    prior, cand = _flat(t.prior), _flat(t.cand)
-    slot_action, slot_n = _flat(t.slot_action), _flat(t.slot_n)
-    slot_w, slot_child = _flat(t.slot_w), _flat(t.slot_child)
-
-    n_tot0 = node_n[base].float()
-    v00 = value0[base]
-    rp0 = prior[base].float()
-    cand0 = unpack_cand(cand[base])
-    en0 = t.root_edge_n
-    q0 = torch.where(en0 > 0, t.root_edge_w / torch.clamp(en0, min=1),
-                     v00[:, None])
-    bonus0 = (cfg.uct_exp.at(n_tot0) * torch.sqrt(1.0 + n_tot0))[:, None] \
-        / (1.0 + en0.float())
-    score0 = _fma(rp0, bonus0, q0)
-    score0 = torch.where(cand0 & torch.isfinite(score0), score0, NEG_INF)
-    root_a = torch.where(cand0.any(1), torch.argmax(score0, 1),
-                         A - 1).to(torch.int32)
-
-    def puct_nonroot(m):
-        g = base + m
-        n_tot = node_n[g].float()
-        fpu = torch.clamp(value0[g] - cfg.fpu_reduce.at(n_tot), min=0.0)
-        u = cfg.uct_exp.at(n_tot) * torch.sqrt(1.0 + n_tot)
-        sa = slot_action[g]
-        sn = slot_n[g]
-        occ = sa >= 0
-        rowp = prior[g].float()
-        q_s = torch.where(sn > 0, slot_w[g] / torch.clamp(sn, min=1),
-                          fpu[:, None])
-        p_s = rowp.gather(1, torch.clamp(sa, min=0).long())
-        s_s = _fma(p_s, u[:, None] / (1.0 + sn.float()), q_s)
-        s_s = torch.where(occ & torch.isfinite(s_s), s_s, NEG_INF)
-        k_best = torch.argmax(s_s, 1)
-        s_best = s_s.max(1).values
-
-        candm = unpack_cand(cand[g])
-        in_slots = torch.zeros(batch, A + 1, dtype=torch.bool, device=dev)
-        in_slots.scatter_(1, torch.where(occ, sa, A).long(), True)
-        un_mask = candm & ~in_slots[:, :A]
-        p_un = torch.where(un_mask, rowp, NEG_INF)
-        a_best = torch.argmax(p_un, 1)
-        su_best = _fma(p_un.max(1).values, u, fpu)
-
-        any_un = un_mask.any(1)
-        slots_full = occ.all(1)
-        use_slot = occ.any(1) & ((s_best >= su_best) | slots_full | ~any_un)
-        action = torch.where(
-            use_slot, sa.gather(1, k_best[:, None])[:, 0],
-            torch.where(any_un, a_best, A - 1).to(torch.int32))
-        kk = torch.where(use_slot, k_best, -1).to(torch.int32)
-        return action.to(torch.int32), kk
-
-    d = min(cap, MAX_BACKUP_DEPTH)
-    path_n = torch.full((batch, d), -1, dtype=torch.int32, device=dev)
-    path_n[:, 0] = 0
-    path_k = torch.full((batch, d), -1, dtype=torch.int32, device=dev)
-
-    # the root advance is resolved once, outside the loop: afterwards a
-    # lane is never at the root again
-    child0 = t.root_child.gather(1, root_a[:, None].long())[:, 0]
-    adv0 = child0 >= 0
-    node = torch.where(adv0, child0, 0)
-    a1, k1 = puct_nonroot(node)
-    action = torch.where(adv0, a1, root_a)
-    kc = torch.where(adv0, k1, -1)
-    path_n[:, 1] = torch.where(adv0, node, -1)
-    path_k[:, 1] = torch.where(adv0, kc, -1)
-    done = ~adv0
-    depth = 2
-    while depth < d:
-        with spans.span("search.select.wait"):
-            finished = bool(done.all())
-        if finished:
-            break
-        child = slot_child[base + node].gather(
-            1, torch.clamp(kc, min=0)[:, None].long())[:, 0]
-        child = torch.where(kc >= 0, child, -1)
-        adv = ~done & (child >= 0)
-        node = torch.where(adv, child, node)
-        action_new, k_new = puct_nonroot(node)
-        action = torch.where(adv, action_new, action)
-        kc = torch.where(adv, k_new, kc)
-        path_n[:, depth] = torch.where(adv, node, -1)
-        path_k[:, depth] = torch.where(adv, kc, -1)
-        done = done | (child < 0)
-        depth += 1
+    out = select_walk(t, cfg.uct_exp, cfg.fpu_reduce, batch, cap)
     if spans.active():
-        # the root's level and each trip of the loop walk every lane
-        spans.count("search.select.iterations", depth - 2)
-        spans.count("search.select.lane_trips", (depth - 1) * batch)
         spans.count_device("search.select.board_levels",
-                           (path_n[:, 1:] >= 0).sum())
-    return node, action, kc, path_n, path_k, root_a
+                           (out[3][:, 1:] >= 0).sum())
+    return out
 
 
 @spans.spanned("search.backup")

@@ -18,7 +18,10 @@ breakdowns:
    the device in the ``*.wait`` spans (``search.select.wait``,
    ``selfplay.move.wait``).  ``search.select.board_levels`` over
    ``search.select.lane_trips`` is the share of the lockstep walk's
-   board-levels that advanced a board;
+   board-levels that advanced a board (on a card, where the walk is one
+   kernel launch, ``lane_trips`` counts the levels the plain loop would
+   have run); ``search.select.launches`` against ``search.simulations``
+   shows that every simulation walked its trees with the kernel;
 2. a ``torch.profiler`` window over ``--profile-sims`` simulations: device
    time by kernel, the device's busy and idle share of the window, and
    the window's span table.

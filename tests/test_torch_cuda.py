@@ -434,6 +434,143 @@ def test_env_step_rejects_bad_inputs(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the select walk
+
+import functools  # noqa: E402
+
+from dream_go_torch.mcts import search as S  # noqa: E402
+from dream_go_torch.mcts import walk_cases as WC  # noqa: E402
+from dream_go_torch.ops import select_walk as SW  # noqa: E402
+from dream_go_torch.utils import spans  # noqa: E402
+
+#: simulations that grow the walk's trees (capacity SIMS + 1)
+WALK_SIMS = 200
+WALK_OUTPUTS = ("node", "action", "k_exit", "path_n", "path_k", "root_a")
+
+
+@functools.lru_cache(maxsize=None)
+def _grown(batch, slots):
+    return WC.grown_trees(torch.device("cuda"), batch, WALK_SIMS, slots=slots,
+                          seed=batch + slots)
+
+
+def _walk_equal(fn, t, cfg):
+    """Raise unless ``fn``'s walk equals the plain walk's bit for bit;
+    returns the plain walk's outputs."""
+    b, c = t.node_n.shape
+    got = fn(t, cfg.uct_exp, cfg.fpu_reduce, b, c)
+    torch.cuda.synchronize()   # a trap in the checked build raises here
+    want = SW.select_walk_plain(t, cfg.uct_exp, cfg.fpu_reduce, b, c)
+    for name, g, w in zip(WALK_OUTPUTS, got, want):
+        assert g.dtype == w.dtype == torch.int32, name
+        assert g.shape == w.shape, name
+        assert torch.equal(g, w), (name, (g != w).nonzero()[:10].tolist())
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [32, 2])
+@pytest.mark.parametrize("batch", [1, 7, 256, 1024])
+def test_select_walk_kernel_matches_plain(cuda_device, batch, slots):
+    """Trees grown by the port's search (flat, peaked and hashed priors),
+    then the same trees with their statistics redrawn, three of them with
+    roots that have no candidate."""
+    t, cfg = _grown(batch, slots)
+    before = SW.launches
+    want = _walk_equal(SW.select_walk, t, cfg)
+    assert SW.launches == before + 1
+    if batch >= 256:
+        assert int((want[3] >= 0).sum(1).max()) >= 8   # some walks go deep
+    if batch >= 256 and slots == 2:
+        # full-slot nodes force slot use on some walks
+        full = (t.slot_action >= 0).all(-1)
+        rows = torch.arange(batch, device=cuda_device)[:, None]
+        assert bool(full[rows, want[3].clamp(min=0)][:, 1:].any())
+    for seed in range(3):
+        n = min(batch, 3)
+        want = _walk_equal(SW.select_walk, WC.perturbed(t, seed, n), cfg)
+        assert bool((want[5][:n] == S.A - 1).all())
+
+
+@pytest.mark.cuda
+def test_select_walk_kernel_at_the_depth_bound(cuda_device):
+    """A line deeper than MAX_BACKUP_DEPTH: the walk stops at 128 levels on
+    an existing edge (k_exit >= 0), as the plain walk does; equal priors
+    (a flat policy) tie, and the first index wins."""
+    t, cfg = WC.line_trees(cuda_device)
+    want = _walk_equal(SW.select_walk, t, cfg)
+    assert bool((want[2] >= 0).all()) and bool((want[3] >= 0).all())
+    assert want[3].shape[1] == SW.MAX_BACKUP_DEPTH
+    flat, fcfg = WC.grown_trees(cuda_device, 16, 24, seed=3)
+    flat.prior.fill_(1.0 / 8.0)
+    flat.root_edge_n.zero_()
+    want = _walk_equal(SW.select_walk, flat, fcfg)
+    cand0 = SW.unpack_cand(flat.cand[:, 0])
+    first = torch.argmax(cand0.to(torch.int8), 1).to(torch.int32)
+    assert torch.equal(want[5], first)
+
+
+@pytest.mark.cuda
+def test_select_walk_checked_build_matches_plain(cuda_device):
+    """The bounds-checked build (-DDG_CHECK) traps on no tree and walks
+    as the plain version: the grown, redrawn and line trees."""
+    for slots in (32, 2):
+        t, cfg = _grown(1024, slots)
+        _walk_equal(SW.select_walk_checked, t, cfg)
+        _walk_equal(SW.select_walk_checked, WC.perturbed(t, 7, 3), cfg)
+    line, cfg = WC.line_trees(cuda_device)
+    _walk_equal(SW.select_walk_checked, line, cfg)
+
+
+@pytest.mark.cuda
+def test_select_walk_rejects_bad_inputs(cuda_device):
+    import dataclasses
+
+    t, cfg = _grown(7, 32)
+    args = (cfg.uct_exp, cfg.fpu_reduce, 7, t.node_n.shape[1])
+    with pytest.raises(TypeError):
+        SW.select_walk(dataclasses.replace(t, slot_n=t.slot_n.long()), *args)
+    with pytest.raises(ValueError):
+        SW.select_walk(dataclasses.replace(t, slot_w=t.slot_w.cpu()), *args)
+    with pytest.raises(ValueError):
+        SW.select_walk(dataclasses.replace(
+            t, root_edge_w=t.root_edge_w.t().contiguous().t()), *args)
+    with pytest.raises(ValueError):
+        SW.select_walk(t, cfg.uct_exp, cfg.fpu_reduce, 7, 1)
+
+
+@pytest.mark.cuda
+def test_search_counts_a_walk_launch_per_simulation(cuda_device,
+                                                   monkeypatch):
+    """On the card each simulation launches the walk once: the counter
+    ``search.select.launches`` equals ``search.simulations``, no host loop
+    runs (``iterations`` 0), and ``lane_trips`` and ``board_levels`` read
+    as the plain loop counts them."""
+    trees, cfg = WC.grown_trees(cuda_device, 64, 24, seed=9, capacity=40)
+    walked = []
+    select = S._select_flat
+
+    def keep(*args, **kwargs):
+        out = select(*args, **kwargs)
+        levels = (out[3][:, 1:] >= 0).sum(1)
+        walked.append((int(levels.sum()), int(levels.max())))
+        return out
+
+    b, c = trees.node_n.shape
+    monkeypatch.setattr(S, "_select_flat", keep)
+    with spans.recording():
+        S.run_search(trees, WC.case_predictor(), cfg, 4, None)
+    counters = spans.snapshot()["counters"]
+    assert counters["search.simulations"] == 4
+    assert counters["search.select.launches"] == 4
+    assert counters.get("search.select.iterations", 0) == 0
+    assert counters["search.select.board_levels"] == sum(n for n, _ in walked)
+    d = min(c, SW.MAX_BACKUP_DEPTH)
+    assert counters["search.select.lane_trips"] == sum(
+        min(deepest + 1, d - 1) * b for _, deepest in walked)
+
+
+# ---------------------------------------------------------------------------
 # GTP serving and reanalyze
 
 
